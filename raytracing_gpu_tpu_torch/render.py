@@ -1,0 +1,224 @@
+"""Render orchestration, CPU-reference pipeline.
+
+The JAX package's `render._render_cpu_mode` path: rays for every (pixel,
+2x2 subsample) generated from ray ids chunk by chunk, block-swizzled on the
+kernel backend so a 256-ray tile covers a compact pixel block, traced through
+the emulated recursion of cpu/raytracer.c:19-34 (contribution
+color_mul(shade, coef) per level, coef' = nr*coef, stop below 0.01 or on a
+miss), and folded into pixels inside each chunk with the reference's clamped
+0.25-weight accumulation (cpu/raytracer.c:55-68).
+
+The bounce loop is a Python loop with one `.any()` sync per bounce that stops
+once no ray is alive; dead rays are parked (origin 3e29, direction 0) so tile
+culling drops them. GPU mode is not ported yet (ROADMAP.md, "Modules to port",
+GPU mode).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from raytracing_gpu_tpu_torch.config import RenderConfig
+from raytracing_gpu_tpu_torch.models.scene import Scene
+from raytracing_gpu_tpu_torch.ops import camera as camera_ops
+from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
+from raytracing_gpu_tpu_torch.ops.fp import f32
+from raytracing_gpu_tpu_torch.ops.colors import ColorOps
+from raytracing_gpu_tpu_torch.ops.intersect import collide
+from raytracing_gpu_tpu_torch.ops.shading import PARKED, material_rows, shade
+
+
+def required_depth(max_nr: float, cutoff: float, cap: int) -> int:
+    """Recursion depth: smallest D with max_nr^D < cutoff, within [1, cap]."""
+    if max_nr <= 0.0:
+        return 1
+    if max_nr >= 1.0:
+        return cap
+    d = int(math.ceil(math.log(cutoff) / math.log(max_nr)))
+    return max(1, min(cap, d))
+
+
+def _winner_nr(scene, hit):
+    """(R,) reflection coefficient of each winning object."""
+    if hit.mat is not None:
+        return hit.mat[:, 10]
+    return material_rows(scene.materials, hit.obj)[:, 10]
+
+
+def trace_rays(scene: Scene, origins, dirs, cfg: RenderConfig, depth: int,
+               pack=None):
+    """Emulated recursive trace() for a batch of rays: (R,3) colors in the
+    cfg.quantize domain. Contributions accumulate forward through the
+    saturating add (associative for non-negative terms)."""
+    cops = ColorOps(cfg.quantize)
+    R = origins.shape[0]
+    o, d = origins, dirs
+    coef = origins.new_ones((R,))
+    alive = torch.ones((R,), dtype=torch.bool, device=origins.device)
+    color = cops.zeros((R,), device=origins.device)
+    cutoff = f32(cfg.reflect_cutoff)
+    for _ in range(depth):
+        if not bool((alive & (coef >= cutoff)).any()):
+            break
+        hit = collide(o, d, scene.geometry, cfg.mt_eps, cfg.self_hit_eps,
+                      cfg.backend, pack, cfg.partitioning)
+        use = alive & (coef >= cutoff) & hit.mask
+        local = shade(scene, hit, cops, cfg.mt_eps, cfg.self_hit_eps,
+                      cfg.backend, pack, cfg.partitioning)
+        color = cops.add(color, torch.where(use[:, None],
+                                            cops.mul(local, coef[:, None]), 0.0))
+        # ray_bounce (cpu/ray.c:16-25) with the unnormalized normal
+        n = hit.normal
+        p = n * d
+        refl = d - n * (2.0 * ((p[:, 0] + p[:, 1]) + p[:, 2]))[:, None]
+        # dead rays are parked: tile culling skips them on later bounces
+        o = torch.where(use[:, None], hit.point, PARKED)
+        d = torch.where(use[:, None], refl, 0.0)
+        coef = torch.where(use, _winner_nr(scene, hit) * coef, 0.0)
+        alive = use
+    return color
+
+
+def _pick_block(width: int, height: int):
+    """(Bx, By) pixel block for block-swizzled ray order (ideally 64 pixels,
+    one 256-ray tile), or None when no candidate divides the image."""
+    for bx, by in ((8, 8), (16, 4), (4, 16), (32, 2), (2, 32),
+                   (8, 4), (4, 8), (4, 4)):
+        if width % bx == 0 and height % by == 0:
+            return bx, by
+    return None
+
+
+def _swiz_ray_ids(r, width: int, bx: int, by: int):
+    """Block-swizzled ray position -> original ray id: pixel blocks in
+    block-row-major order, row-major within a block, the 4 subsamples of a
+    pixel kept adjacent."""
+    nbx = width // bx
+    pix = r // 4
+    s = r % 4
+    blkid = pix // (bx * by)
+    within = pix % (bx * by)
+    y = (blkid // nbx) * by + within // bx
+    x = (blkid % nbx) * bx + within % bx
+    return (y * width + x) * 4 + s
+
+
+def _fold_subsamples(colors, cfg: RenderConfig):
+    """(4k,3) subsample colors -> (k,3) pixels, accumulated in the
+    reference's subsample order with clamped ops (cpu/raytracer.c:55-68)."""
+    cops = ColorOps(cfg.quantize)
+    x = colors.reshape(-1, 4, 3)
+    acc = cops.zeros((x.shape[0],), device=colors.device)
+    for s in range(4):
+        acc = cops.add(acc, cops.mul(x[:, s], 0.25))
+    return acc
+
+
+def assemble_cpu_image(colors, cfg: RenderConfig, width: int, height: int):
+    """(H*W*4,3) subsample colors -> (H,W,3) image in [0,255]."""
+    return ColorOps(cfg.quantize).finalize(
+        _fold_subsamples(colors, cfg)).reshape(height, width, 3)
+
+
+def _trace_image(scene, cfg, depth, width, height, pack=None, fold4=True,
+                 ray_id_map=None):
+    """Colors of all n = W*H*4 rays, chunk by chunk, generating each chunk's
+    rays from their ids. The tail chunk's ids are clamped to the last ray
+    (its duplicates are sliced away). fold4 folds each chunk's subsamples
+    into pixels and returns (n/4, 3); it needs a chunk size divisible by 4,
+    so that a pixel's subsamples never straddle chunks."""
+    n_rays = width * height * 4
+    chunk = min(cfg.ray_chunk, n_rays)
+    dev = scene.device
+    u, v, C = camera_ops.camera_basis(scene.camera)
+    pos = scene.camera.position
+    out = []
+    for c0 in range(0, n_rays, chunk):
+        r = torch.clamp(torch.arange(c0, c0 + chunk, device=dev), max=n_rays - 1)
+        if ray_id_map is not None:
+            r = ray_id_map(r)
+        coords = camera_ops.cpu_subpixel_coords_traced(width, height, r)
+        origins, dirs = camera_ops.make_rays(u, v, C, pos, coords)
+        colors = trace_rays(scene, origins, dirs, cfg, depth, pack)
+        out.append(_fold_subsamples(colors, cfg) if fold4 else colors)
+    colors = torch.cat(out)
+    return colors[:n_rays // 4] if fold4 else colors[:n_rays]
+
+
+def _render_cpu_mode(scene: Scene, cfg: RenderConfig, depth: int, pack=None):
+    """CPU-reference pipeline: (H,W,3) float32 image in [0,255] on the
+    scene's device."""
+    if cfg.f2b_tiles:
+        raise NotImplementedError(
+            "f2b_tiles > 0 (front-to-back sweep) is not ported yet: see "
+            "ROADMAP.md, 'TPU kernels to port'")
+    width, height = scene.camera.width, scene.camera.height
+    n_rays = width * height * 4
+    fold4 = min(cfg.ray_chunk, n_rays) % 4 == 0
+    blk = _pick_block(width, height) if fold4 else None
+    swiz = (blk is not None and cfg.backend == "cuda"
+            and cfg.block_rays in ("on", "auto"))
+    ray_id_map = None
+    if swiz:
+        bx, by = blk
+        ray_id_map = lambda r: _swiz_ray_ids(r, width, bx, by)  # noqa: E731
+    colors = _trace_image(scene, cfg, depth, width, height, pack, fold4,
+                          ray_id_map)
+    if not fold4:
+        return assemble_cpu_image(colors, cfg, width, height)
+    out = ColorOps(cfg.quantize).finalize(colors)
+    if swiz:
+        return (out.reshape(height // by, width // bx, by, bx, 3)
+                .permute(0, 2, 1, 3, 4).reshape(height, width, 3))
+    return out.reshape(height, width, 3)
+
+
+class SceneRenderer:
+    """Renderer for repeated frames of one scene on one device.
+
+    Moves the scene to `device` and, on the cuda backend, builds the kernel
+    pack (clustering, packing, winner table) once; `render()` then only
+    traces. `device="cuda"` raises when CUDA is not available: nothing falls
+    back to the CPU unless `device="cpu"` is asked for.
+    """
+
+    def __init__(self, scene: Scene, cfg: RenderConfig = RenderConfig(),
+                 device="cuda"):
+        if cfg.mode != "cpu":
+            raise NotImplementedError(
+                "mode='gpu' is not ported yet: see ROADMAP.md, 'Modules to "
+                "port', GPU mode")
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but CUDA is not "
+                               "available; pass device='cpu' to render on the CPU")
+        self.cfg = cfg
+        self.width, self.height = scene.camera.width, scene.camera.height
+        self.scene = scene.to(device)
+        max_nr = float(np.max(scene.materials.nr.cpu().numpy()))
+        cap = cfg.diff_max_depth if cfg.quantize == "smooth" else cfg.cpu_max_depth
+        self.depth = required_depth(max_nr, cfg.reflect_cutoff, cap)
+        self.pack = None
+        if cfg.backend == "cuda":
+            g = self.scene.geometry
+            self.pack = ck.pack_geometry(g.vertices, g.valid, g.normals,
+                                         g.tri_obj, self.scene.materials)
+
+    @torch.no_grad()
+    def render_device(self) -> torch.Tensor:
+        """One frame, left on the device: (H,W,3) float32 in [0,255]."""
+        return _render_cpu_mode(self.scene, self.cfg, self.depth, self.pack)
+
+    def render(self) -> np.ndarray:
+        """One frame as host numpy (H,W,3) float32 in [0,255]."""
+        return self.render_device().cpu().numpy()
+
+
+def render_scene(scene: Scene, cfg: RenderConfig = RenderConfig(),
+                 device="cuda") -> np.ndarray:
+    """Render a scene to an (H,W,3) float image in [0,255]; truncate to
+    uint8 (or write with utils.image.write_ppm) for the reference's output."""
+    return SceneRenderer(scene, cfg, device).render()
