@@ -1,20 +1,41 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from raytracing_gpu_tpu_torch/csrc with nvcc,
-checks each against its plain PyTorch version on the card at the shapes the
-render gives it, renders the 4,962-triangle sphere scene and the
-96,000-triangle sphere grid at 512x512 through the kernel backend, and checks
-the kernel render against the all-pairs "torch" backend at 128x128. Any
-failure raises and the script exits non-zero; it also exits non-zero when
-CUDA is not available. On success the last two lines of stdout are a JSON
-object with one entry per kernel and
+checks each of the six against its plain PyTorch version on the card at the
+shapes the renders give it, and drives every ported path through
+`SceneRenderer`:
+
+- CPU mode, backend "cuda": the 4,962-triangle sphere scene and the
+  96,000-triangle sphere grid at 512x512 (K1, K2, K3), the kernel render
+  against the all-pairs "torch" backend at 128x128, and the grid again with
+  the two-round front-to-back sweep (`f2b_tiles=8`), equal to the frame
+  without it;
+- GPU mode: the sphere scene at 512x512 output and aliasing 3 (2,359,296
+  primary rays) with the any-hit shadow sweep forced on (K1, K3, K4), equal
+  to the same frame through the distance sweep, and a 64x64 GPU-mode frame
+  against the "torch" backend;
+- backend "cuda_matmul": the sphere scene at 512x512 in CPU mode (K5, K6,
+  K3), held against the "cuda" frame by the edge-aware comparator.
+
+Before each of these paths the launch counts are set to 0 and read just
+after its frame. Any failure raises and the script exits non-zero; it also
+exits non-zero when CUDA is not available. On success the last three lines
+of stdout are a JSON object with one entry per kernel, the card's nvidia-smi
+name and power limit, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
 Timings are CUDA-event times (kernels) and host wall-clock times around
-synchronised frames (renders), printed beside the card's nvidia-smi name and
-power limit. Imports torch, numpy and the port only.
+synchronised frames (renders). A kernel's `bound_ms` is the least time the
+card could take for the same call: the larger of its floating-point
+operations over 67 TFLOP/s and its bytes (inputs read once, outputs written
+once) over 3.35 TB/s, the published peaks of an H100 SXM at 700 W; the work
+is counted for this run's data (pair tiles kept by the culling, triangle
+tiles the any-hit sweep walked before its early exit). `--profile` also
+traces one warm frame of each path with torch.profiler and prints kernel
+launches and the device's busy share. Imports torch, numpy and the port only.
 """
 
 from __future__ import annotations
@@ -38,11 +59,30 @@ from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
 from raytracing_gpu_tpu_torch.ops.intersect import collide
 from raytracing_gpu_tpu_torch.ops.shading import shadow_rays
 from raytracing_gpu_tpu_torch.render import _pick_block, _swiz_ray_ids
+from raytracing_gpu_tpu_torch.utils.compare import assert_images_close
 
 SOURCE = "raytracing_gpu_tpu_torch/csrc/intersect.cu"
 PALLAS = "raytracing_gpu_tpu/ops/pallas_intersect.py"
+REPLACES = {"nearest_hit": f"{PALLAS}:230", "nearest_dist": f"{PALLAS}:316",
+            "fetch_rows": f"{PALLAS}:523", "any_hit": f"{PALLAS}:407",
+            "nearest_hit_matmul": f"{PALLAS}:794",
+            "nearest_dist_matmul": f"{PALLAS}:844"}
 EPS = dict(mt_eps=1e-7, self_hit_eps=0.01)
 SPHERES = dict(n_lat=32, n_lon=40)  # 4,962 triangles
+ALIASING = 3
+
+# published peaks of one H100 SXM (700 W): FP32 outside the tensor cores, HBM3
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations per (ray, triangle) pair: Möller–Trumbore in scalar form
+# (the JAX package's cost estimate) and in matmul form (34 in the four
+# products over the 19 non-zero feature rows, 20 in the epilogue)
+OPS_PER_PAIR = 60
+OPS_PER_PAIR_MATMUL = 54
+PAIRS_PER_TILE = ck.TILE_R * ck.TILE_T
+# the matmul backend may flip winners on exact geometry edges only: more than
+# this share of a chunk's rays disagreeing with K1 fails
+MAX_EDGE_FLIP_SHARE = 1e-3
 
 
 def say(phase: str, msg: str) -> None:
@@ -62,9 +102,24 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def primary_rays(scene, n: int):
-    """n primary rays, in the render's block-swizzled order, from the pixel
-    blocks around the image centre."""
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(least milliseconds the card could take, which side binds)."""
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sweep_bytes(Rp: int, Tp: int, in_per_ray: int, in_per_tri: int,
+                out_per_ray: int) -> int:
+    """Bytes a sweep must move: ray and triangle inputs, the worklist
+    (order and count), the per-ray outputs."""
+    nR, nT = Rp // ck.TILE_R, Tp // ck.TILE_T
+    return (Rp * in_per_ray + Tp * in_per_tri + (nR * nT + nR) * 4
+            + Rp * out_per_ray)
+
+
+def cpu_primary_rays(scene, n: int):
+    """n CPU-mode primary rays, in the render's block-swizzled order, from
+    the pixel blocks around the image centre."""
     w, h = scene.camera.width, scene.camera.height
     bx, by = _pick_block(w, h)
     nbx, block = w // bx, 4 * bx * by  # blocks per block row, rays per block
@@ -76,6 +131,17 @@ def primary_rays(scene, n: int):
     return camera_ops.make_rays(u, v, C, scene.camera.position, coords)
 
 
+def gpu_primary_rays(scene_hi, n: int):
+    """The n-ray chunk of GPU-mode primary rays (row-major hi-res pixels)
+    that holds the image centre; `scene_hi` carries the hi-res camera."""
+    w, h = scene_hi.camera.width, scene_hi.camera.height
+    start = (w * h // 2) // n * n
+    r = torch.arange(start, start + n, device=scene_hi.device)
+    coords = camera_ops.gpu_pixel_coords_traced(w, h, r)
+    u, v, C = camera_ops.camera_basis(scene_hi.camera)
+    return camera_ops.make_rays(u, v, C, scene_hi.camera.position, coords)
+
+
 def ulp_histogram(a, b) -> str:
     ai = a.view(torch.int32).long()
     bi = b.view(torch.int32).long()
@@ -83,12 +149,23 @@ def ulp_histogram(a, b) -> str:
     return str(np.bincount(d, minlength=2).tolist())
 
 
-def check_sweep(name, rays, pack, iters):
+def require_bit_equal(name, got, ref):
+    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError(f"{name}: distances not bit-equal; ulp histogram "
+                             f"(0..16+) {ulp_histogram(got, ref)}")
+
+
+def max_err(got, ref) -> float:
+    fin = torch.isfinite(ref)
+    if not bool(fin.any()):
+        raise AssertionError("no ray hits anything; the check is vacuous")
+    return float((got[fin] - ref[fin]).abs().max())
+
+
+def check_sweep(name, rays, pack, iters, what):
     """K1 or K2 against its plain version on one packed ray batch:
-    bit-equal distances (and equal slots for K1). Returns (max_abs_err,
-    kernel ms, plain ms)."""
-    o, d = rays
-    op, dp, _ = ck.pack_rays(o, d)
+    bit-equal distances (and equal slots for K1)."""
+    op, dp, _ = ck.pack_rays(*rays)
     mask = ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")
     args = (op, dp, pack.v0, pack.e1, pack.e2, mask, EPS["mt_eps"],
             EPS["self_hit_eps"])
@@ -102,41 +179,217 @@ def check_sweep(name, rays, pack, iters):
         n_idx = int((got_idx != ref_idx).sum())
         if n_idx:
             raise AssertionError(f"{name}: {n_idx} winner slots differ")
-    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
-        raise AssertionError(f"{name}: distances not bit-equal; ulp histogram "
-                             f"(0..16+) {ulp_histogram(got, ref)}")
-    fin = torch.isfinite(ref)
-    err = float((got[fin] - ref[fin]).abs().max()) if bool(fin.any()) else 0.0
-    ms = cuda_ms(lambda: kern(*args), iters)
-    plain_ms = cuda_ms(lambda: plain(*args), 2)
-    hits = int(fin.sum())
-    if not hits:
-        raise AssertionError(f"{name}: no ray hits anything; the check is vacuous")
-    say("kernels", f"{name}: {op.shape[1]} rays x {pack.v0.shape[0]} triangles, "
-        f"{int(mask.sum())}/{mask.numel()} pair tiles kept, {hits} hits: "
-        f"bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    require_bit_equal(name, got, ref)
+    Rp, Tp, kept = op.shape[1], pack.v0.shape[0], int(mask.sum())
+    bms, by = bound(kept * PAIRS_PER_TILE * OPS_PER_PAIR,
+                    sweep_bytes(Rp, Tp, 24, 36, 8 if name == "nearest_hit" else 4))
+    res = dict(max_abs_err=max_err(got, ref), ms=cuda_ms(lambda: kern(*args), iters),
+               plain_ms=cuda_ms(lambda: plain(*args), 2), bound_ms=bms,
+               bound_by=by, library_ms=None)
+    say("kernels", f"{name} ({what}): {Rp} rays x {Tp} triangles, {kept}/"
+        f"{mask.numel()} pair tiles kept, {int(torch.isfinite(ref).sum())} hits: "
+        f"bit-equal; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+        f"bound {bms:.5f} ms ({by})")
+    return res
+
+
+def check_any_hit(rays, pack, iters, what):
+    """K4 against its plain version and against `nearest_dist < inf`:
+    equal exactly. Also times K2 on the same inputs (`k2_ms`)."""
+    op, dp, R = ck.pack_rays(*rays)
+    mask = ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")
+    args = (op, dp, pack.v0, pack.e1, pack.e2, mask, EPS["mt_eps"],
+            EPS["self_hit_eps"])
+    got, walked = ck.any_hit_walked(*args)
+    ref = ck.any_hit_plain(*args)
+    via_dist = torch.isfinite(ck.nearest_dist(*args)) & ck.live_rays(op)
+    torch.cuda.synchronize()
+    for other, label in ((ref, "its plain version"), (via_dist, "nearest_dist < inf")):
+        n = int((got != other).sum())
+        if n:
+            raise AssertionError(f"any_hit ({what}): {n} rays differ from {label}")
+    live = ck.live_rays(op)
+    n_occ, n_free = int((got & live).sum()), int((~got & live).sum())
+    if not n_occ or not n_free:
+        raise AssertionError(f"any_hit ({what}): {n_occ} occluded and {n_free} "
+                             "unoccluded live rays; the check is vacuous")
+    Rp, Tp = op.shape[1], pack.v0.shape[0]
+    kept, n_walked = int(mask.sum()), int(walked.sum())
+    if n_walked > kept:
+        raise AssertionError(f"any_hit walked {n_walked} tiles of {kept} kept")
+    bms, by = bound(n_walked * PAIRS_PER_TILE * OPS_PER_PAIR,
+                    sweep_bytes(Rp, Tp, 24, 36, 1) + (Rp // ck.TILE_R) * 4)
+    res = dict(max_abs_err=0.0, ms=cuda_ms(lambda: ck.any_hit(*args), iters),
+               plain_ms=cuda_ms(lambda: ck.any_hit_plain(*args), 2), bound_ms=bms,
+               bound_by=by, library_ms=None,
+               k2_ms=cuda_ms(lambda: ck.nearest_dist(*args), iters))
+    say("kernels", f"any_hit ({what}): {Rp} rays ({int(live.sum())} live) x {Tp} "
+        f"triangles, walked {n_walked} of {kept} kept pair tiles, {n_occ} occluded "
+        f"/ {n_free} not: equal; kernel {res['ms']:.4f} ms (nearest_dist on the "
+        f"same rays {res['k2_ms']:.4f} ms), plain {res['plain_ms']:.4f} ms, bound "
+        f"{bms:.5f} ms ({by})")
+    return res
+
+
+def check_any_hit_early_exit(pack, dev):
+    """K4 on ray tiles that saturate: 1,024 rays straight down onto the
+    sphere scene's ground, every pair tile kept. Every ray is occluded, the
+    answer equals the plain version's, and each ray tile must stop walking
+    before its worklist ends."""
+    gen = torch.Generator().manual_seed(7)
+    xz = torch.rand((1024, 2), generator=gen) * 2.0 - 1.0
+    o = torch.stack([xz[:, 0], torch.full((1024,), 5.0), xz[:, 1]], 1).to(dev)
+    d = torch.tensor([0.0, -1.0, 0.0], device=dev).expand(1024, 3)
+    op, dp, _ = ck.pack_rays(o, d)
+    mask = ck.tile_cull_mask_hierarchical(op, dp, pack, "none")
+    args = (op, dp, pack.v0, pack.e1, pack.e2, mask, EPS["mt_eps"],
+            EPS["self_hit_eps"])
+    got, walked = ck.any_hit_walked(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ck.any_hit_plain(*args)) or not bool(got.all()):
+        raise AssertionError("any_hit (saturated tiles): wrong answer")
+    kept = mask.sum(0)
+    if not bool((walked < kept).all()):
+        raise AssertionError("any_hit (saturated tiles): no early exit, walked "
+                             f"{walked.tolist()} of {kept.tolist()}")
+    say("kernels", f"any_hit (saturated tiles): all {got.numel()} rays occluded, "
+        f"equal; walked {walked.tolist()} of {kept.tolist()} triangle tiles")
+
+
+def check_matmul(name, rays, pack, iters, what):
+    """K5 or K6 against its plain version on one recentred ray batch:
+    bit-equal distances and slots; K5's winners against K1's."""
+    o, d = rays
+    c = ck.live_centroid(o)
+    op, dp, R = ck.pack_rays(o, d)
+    oc = op - c[:, None]
+    mask = ck.tile_cull_mask_hierarchical(
+        oc, dp, pack._replace(tile_aabb=pack.tile_aabb - c), "octree")
+    rayf = ck.ray_features(oc, dp)
+    g = ck.pack_tri_features(pack.v0 - c, pack.e1, pack.e2)
+    args = (rayf, g, mask, EPS["mt_eps"], EPS["self_hit_eps"])
+    want_idx = name == "nearest_hit_matmul"
+    kern = ck.nearest_hit_matmul if want_idx else ck.nearest_dist_matmul
+    plain = ck.nearest_hit_matmul_plain if want_idx else ck.nearest_dist_matmul_plain
+    got, ref = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    note = ""
+    if want_idx:
+        (got, got_idx), (ref, ref_idx) = got, ref
+        n_idx = int((got_idx != ref_idx).sum())
+        if n_idx:
+            raise AssertionError(f"{name}: {n_idx} winner slots differ from the "
+                                 "plain version")
+        m1 = ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")
+        d1, i1 = ck.nearest_hit(op, dp, pack.v0, pack.e1, pack.e2, m1, **EPS)
+        flips = int(((got_idx != i1) | (torch.isfinite(got) != torch.isfinite(d1)))[:R].sum())
+        note = f"; {flips} of {R} winners differ from K1's"
+        if flips > MAX_EDGE_FLIP_SHARE * R:
+            raise AssertionError(f"{name}: {flips} of {R} winners differ from "
+                                 f"K1's, more than {MAX_EDGE_FLIP_SHARE:.0e} of the rays")
+    require_bit_equal(name, got, ref)
+    Rp, Tp, kept = rayf.shape[1], g.shape[2], int(mask.sum())
+    bms, by = bound(kept * PAIRS_PER_TILE * OPS_PER_PAIR_MATMUL,
+                    sweep_bytes(Rp, Tp, 64, 256, 8 if want_idx else 4))
+    res = dict(max_abs_err=max_err(got, ref), ms=cuda_ms(lambda: kern(*args), iters),
+               plain_ms=cuda_ms(lambda: plain(*args), 2), bound_ms=bms,
+               bound_by=by, library_ms=None)
+    say("kernels", f"{name} ({what}): {Rp} rays x {Tp} triangles, {kept}/"
+        f"{mask.numel()} pair tiles kept, {int(torch.isfinite(ref).sum())} hits: "
+        f"bit-equal{note}; kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, bound {bms:.5f} ms ({by})")
+    return res
 
 
 def check_fetch(pack, idx, iters):
-    """K3 against table[idx]: rows must be equal exactly."""
+    """K3 against table[idx]: rows must be equal exactly. The library call
+    timed beside it is torch.index_select."""
     got = ck.fetch_rows(pack.table, idx)
     ref = ck.fetch_rows_plain(pack.table, idx)
     torch.cuda.synchronize()
     if not torch.equal(got, ref):
         raise AssertionError("fetch_rows: rows differ from table[idx]")
-    ms = cuda_ms(lambda: ck.fetch_rows(pack.table, idx), iters)
-    plain_ms = cuda_ms(lambda: ck.fetch_rows_plain(pack.table, idx), iters)
-    mb = pack.table.numel() * 4 / 2**20
-    say("kernels", f"fetch_rows: {idx.shape[0]} rows of a {tuple(pack.table.shape)} "
-        f"table ({mb:.1f} MB): equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return 0.0, ms, plain_ms
+    n, (Tp, C) = idx.shape[0], pack.table.shape
+    long_idx = idx.long()
+    bms, by = bound(0, min(Tp, n) * C * 4 + n * 4 + n * C * 4)
+    res = dict(max_abs_err=0.0,
+               ms=cuda_ms(lambda: ck.fetch_rows(pack.table, idx), iters),
+               plain_ms=cuda_ms(lambda: ck.fetch_rows_plain(pack.table, idx), iters),
+               bound_ms=bms, bound_by=by,
+               library_ms=cuda_ms(lambda: torch.index_select(pack.table, 0, long_idx),
+                                  iters))
+    say("kernels", f"fetch_rows: {n} rows of a {(Tp, C)} table "
+        f"({Tp * C * 4 / 2**20:.1f} MB): equal; kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, index_select {res['library_ms']:.4f} ms, "
+        f"bound {bms:.5f} ms ({by})")
+    return res
 
 
 def scene_pack(scene):
     g = scene.geometry
     return ck.pack_geometry(g.vertices, g.valid, g.normals, g.tri_obj,
                             scene.materials)
+
+
+def winners(rays, pack):
+    """K1's winner slots of a ray batch (its first R entries)."""
+    op, dp, R = ck.pack_rays(*rays)
+    mask = ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")
+    return ck.nearest_hit(op, dp, pack.v0, pack.e1, pack.e2, mask, **EPS)[1][:R]
+
+
+def shadows_of(scene, rays, pack):
+    """The shadow rays the shading pass sends for a batch of primary rays."""
+    hit = collide(*rays, scene.geometry, backend="cuda", pack=pack)
+    so, sd, _ = shadow_rays(scene.lights, hit)
+    return so, sd
+
+
+def check_kernels(dev):
+    """All six kernels against their plain versions on the card, at the
+    shapes the renders give them. Returns {kernel: result dict} at the shapes
+    of the path that claims the kernel: K1-K3 and K5/K6 on one 65,536-ray
+    chunk of the sphere scene's CPU-mode primary rays and its 131,072 shadow
+    rays, K4 on the shadow rays of one GPU-mode chunk. Every kernel is also
+    held on 4,096 rays of the 96k-triangle grid (interval hierarchy, 12 MB
+    table)."""
+    chunk = RenderConfig().ray_chunk
+    sph = make_sphere_scene(512, 512, **SPHERES).to(dev)
+    sph_pack = scene_pack(sph)
+    grid = make_sphere_grid_scene(512, 512).to(dev)
+    grid_pack = scene_pack(grid)
+    say("kernels", f"sphere scene {sph.n_triangles} triangles; grid "
+        f"{grid.n_triangles} triangles ({grid_pack.table.numel() * 4 / 2**20:.1f} MB table)")
+    results = {}
+    prim = cpu_primary_rays(sph, chunk)
+    shad = shadows_of(sph, prim, sph_pack)
+    results["nearest_hit"] = check_sweep("nearest_hit", prim, sph_pack, 20,
+                                         "spheres, CPU-mode primary chunk")
+    results["fetch_rows"] = check_fetch(sph_pack, winners(prim, sph_pack), 50)
+    results["nearest_dist"] = check_sweep("nearest_dist", shad, sph_pack, 20,
+                                          "spheres, its shadow rays")
+    results["nearest_hit_matmul"] = check_matmul(
+        "nearest_hit_matmul", prim, sph_pack, 20, "spheres, CPU-mode primary chunk")
+    results["nearest_dist_matmul"] = check_matmul(
+        "nearest_dist_matmul", shad, sph_pack, 20, "spheres, its shadow rays")
+    check_any_hit(shad, sph_pack, 20, "spheres, CPU-mode chunk's shadow rays")
+    check_any_hit_early_exit(sph_pack, dev)
+
+    sph_hi = make_sphere_scene(512 * ALIASING, 512 * ALIASING, **SPHERES).to(dev)
+    gprim = gpu_primary_rays(sph_hi, chunk)
+    check_sweep("nearest_hit", gprim, sph_pack, 20, "spheres, GPU-mode primary chunk")
+    results["any_hit"] = check_any_hit(shadows_of(sph_hi, gprim, sph_pack), sph_pack,
+                                       20, "spheres, GPU-mode chunk's shadow rays")
+
+    few = cpu_primary_rays(grid, 4096)
+    check_sweep("nearest_hit", few, grid_pack, 10, "grid")
+    check_sweep("nearest_dist", few, grid_pack, 10, "grid")
+    check_fetch(grid_pack, winners(few, grid_pack), 50)
+    check_any_hit(few, grid_pack, 10, "grid primary rays")
+    check_any_hit(shadows_of(grid, few, grid_pack), grid_pack, 10, "grid shadow rays")
+    check_matmul("nearest_hit_matmul", few, grid_pack, 10, "grid")
+    check_matmul("nearest_dist_matmul", few, grid_pack, 10, "grid")
+    return results
 
 
 def time_frames(renderer, n: int):
@@ -157,43 +410,86 @@ def check_image(img, w, h):
         raise AssertionError("image has non-finite pixels")
     if float(img.min()) < 0.0 or float(img.max()) > 255.0:
         raise AssertionError("image outside [0, 255]")
+    if float(img.max()) <= 0.0:
+        raise AssertionError("image is black")
 
 
-def check_kernels(dev):
-    """K1, K2 and K3 against their plain versions on the card, at the
-    shapes the render gives them: one 65,536-ray chunk of the sphere
-    scene's primary rays, its 131,072 shadow rays, and 4,096 rays of the
-    96k-triangle grid (interval hierarchy, 12 MB table). Returns
-    {kernel: (max_abs_err, ms, plain_ms)} at the sphere scene's shapes."""
-    sph = make_sphere_scene(512, 512, **SPHERES).to(dev)
-    sph_pack = scene_pack(sph)
-    grid = make_sphere_grid_scene(512, 512).to(dev)
-    grid_pack = scene_pack(grid)
-    say("kernels", f"sphere scene {sph.n_triangles} triangles; grid "
-        f"{grid.n_triangles} triangles ({grid_pack.table.numel() * 4 / 2**20:.1f} MB table)")
-    results = {}
-    prim = primary_rays(sph, RenderConfig().ray_chunk)
-    results["nearest_hit"] = check_sweep("nearest_hit", prim, sph_pack, 20)
-    hit = collide(*prim, sph.geometry, backend="cuda", pack=sph_pack)
-    op, dp, _ = ck.pack_rays(*prim)
-    mask = ck.tile_cull_mask_hierarchical(op, dp, sph_pack, "octree")
-    idx = ck.nearest_hit(op, dp, sph_pack.v0, sph_pack.e1, sph_pack.e2, mask,
-                         **EPS)[1][:prim[0].shape[0]]
-    results["fetch_rows"] = check_fetch(sph_pack, idx, 50)
-    so, sd, _ = shadow_rays(sph.lights, hit)
-    results["nearest_dist"] = check_sweep("nearest_dist", (so, sd), sph_pack, 20)
-    gprim = primary_rays(grid, 4096)
-    check_sweep("nearest_hit", gprim, grid_pack, 10)
-    check_sweep("nearest_dist", gprim, grid_pack, 10)
-    gop, gdp, _ = ck.pack_rays(*gprim)
-    gmask = ck.tile_cull_mask_hierarchical(gop, gdp, grid_pack, "octree")
-    gidx = ck.nearest_hit(gop, gdp, grid_pack.v0, grid_pack.e1, grid_pack.e2,
-                          gmask, **EPS)[1]
-    check_fetch(grid_pack, gidx, 50)
-    return results
+def counted_frame(renderer, what, need, none=()):
+    """One frame with the launch counts set to 0 just before it and read
+    just after; fails unless every kernel in `need` was launched and none in
+    `none` was. Returns (image, counts)."""
+    ck.reset_launch_counts()
+    img = renderer.render_device()
+    torch.cuda.synchronize()
+    counts = dict(ck.LAUNCHES)
+    say("render", f"{what}: launches in one frame {counts}")
+    for name in need:
+        if counts[name] <= 0:
+            raise AssertionError(f"{what}: the render never launched {name}")
+    for name in none:
+        if counts[name]:
+            raise AssertionError(f"{what}: the render launched {name} "
+                                 f"{counts[name]} times, expected none")
+    check_image(img, renderer.width, renderer.height)
+    return img, counts
 
 
-def main() -> int:
+def u8(img) -> np.ndarray:
+    return torch.trunc(img).to(torch.int32).cpu().numpy()
+
+
+def require_same_image(a, b, what):
+    a, b = u8(a), u8(b)
+    n_diff = int((a != b).any(-1).sum())
+    if n_diff:
+        raise AssertionError(f"{what}: {n_diff} pixels differ (max |d| "
+                             f"{int(np.abs(a - b).max())})")
+    say("render", f"{what}: uint8-equal")
+
+
+def report_frames(what, renderer, times, n_primary, smi):
+    ms = float(np.median(times))
+    say("render", f"{what} ({renderer.scene.n_triangles} tris): frames "
+        f"{[round(t, 3) for t in times]} ms, median {ms:.3f} ms/frame, "
+        f"{n_primary / ms * 1e3 / 1e6:.3f} M primary rays/s; {smi}")
+
+
+def profile_frame(renderer, what):
+    """Trace one warm frame: kernel launches, the device's busy share (union
+    of kernel intervals over the frame's host wall time) and the time in the
+    port's own kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        renderer.render_device()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device activity")
+    busy_us, end = 0.0, float("-inf")
+    for s, e in sorted((k.time_range.start, k.time_range.end) for k in kernels):
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+    own = {}
+    for k in kernels:
+        tag = next((t for t in ("matmul_sweep_kernel", "any_hit_kernel",
+                                "fetch_rows_kernel", "sweep_kernel")
+                    if t in k.name), None)
+        if tag is not None:
+            n, us = own.get(tag, (0, 0.0))
+            own[tag] = (n + 1, us + k.time_range.elapsed_us())
+    say("profile", f"{what}: profiled frame {wall_ms:.1f} ms, {len(kernels)} "
+        f"device kernels and copies, device busy {busy_us / 1e3:.1f} ms = "
+        f"{busy_us / 10 / wall_ms:.1f}% of the frame; own kernels "
+        + ", ".join(f"{t} {us / 1e3:.2f} ms in {n}" for t, (n, us) in sorted(own.items())))
+
+
+def main(argv) -> int:
+    want_profile = "--profile" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -211,59 +507,114 @@ def main() -> int:
     ck.build_kernels()
     say("build", f"{path} in {time.perf_counter() - t0:.1f} s")
     for line in (path.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "bytes smem" in line:
+        if "registers" in line or "bytes smem" in line or "Compiling entry" in line:
             say("build", line.strip())
 
     results = check_kernels(dev)
     cfg = RenderConfig(backend="cuda")
+    spheres512 = make_sphere_scene(512, 512, **SPHERES)
+    cpu_rays = 512 * 512 * 4
+    launches = {}
 
-    # ---- the main path: a 512x512 frame of the sphere scene on the kernels
-    renderer = SceneRenderer(make_sphere_scene(512, 512, **SPHERES), cfg, dev)
-    ck.reset_launch_counts()
-    img = renderer.render_device()
-    torch.cuda.synchronize()
-    launches = dict(ck.LAUNCHES)
-    say("render", f"sphere 512x512 launches in one frame: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"the render never launched {name}")
-    check_image(img, 512, 512)
-    img, times = time_frames(renderer, 3)
-    check_image(img, 512, 512)
-    ms = float(np.median(times))
-    say("render", f"sphere 512x512 ({renderer.scene.n_triangles} tris, depth "
-        f"{renderer.depth}): frames {[round(t, 3) for t in times]} ms, median "
-        f"{ms:.3f} ms/frame, {512 * 512 * 4 / ms * 1e3 / 1e6:.3f} M primary "
-        f"rays/s; {smi}")
+    # ---- CPU mode, backend "cuda": the sphere scene at 512x512
+    renderer = SceneRenderer(spheres512, cfg, dev)
+    cuda_img, launches["cpu_mode"] = counted_frame(
+        renderer, "CPU mode, spheres 512x512, cuda",
+        ("nearest_hit", "nearest_dist", "fetch_rows"))
+    _, times = time_frames(renderer, 3)
+    report_frames(f"CPU mode, spheres 512x512, cuda (depth {renderer.depth})",
+                  renderer, times, cpu_rays, smi)
+    if want_profile:
+        profile_frame(renderer, "CPU mode, spheres 512x512, cuda")
 
     small = make_sphere_scene(128, 128, **SPHERES)
-    ref = SceneRenderer(small, RenderConfig(backend="torch"), dev).render()
-    got = SceneRenderer(small, cfg, dev).render()
-    a, b = np.trunc(got).astype(np.int32), np.trunc(ref).astype(np.int32)
-    n_diff = int((a != b).any(-1).sum())
-    if n_diff:
-        raise AssertionError(f"128x128 cuda render differs from the torch "
-                             f"backend on {n_diff} pixels (max |d| "
-                             f"{int(np.abs(a - b).max())})")
-    say("render", "sphere 128x128: cuda backend uint8-equal to the torch backend")
+    require_same_image(
+        SceneRenderer(small, cfg, dev).render_device(),
+        SceneRenderer(small, RenderConfig(backend="torch"), dev).render_device(),
+        "CPU mode, spheres 128x128, cuda against the torch backend")
 
-    # ---- the 96k-triangle grid: interval hierarchy, large-table fetch
-    grenderer = SceneRenderer(make_sphere_grid_scene(512, 512), cfg, dev)
-    img, times = time_frames(grenderer, 3)
-    check_image(img, 512, 512)
-    gms = float(np.median(times[1:]))
-    say("render", f"grid 512x512 ({grenderer.scene.n_triangles} tris): frames "
-        f"{[round(t, 3) for t in times]} ms, median of warm {gms:.3f} ms/frame, "
-        f"{512 * 512 * 4 / gms * 1e3 / 1e6:.3f} M primary rays/s; {smi}")
+    # ---- the 96k-triangle grid: interval hierarchy, large-table fetch, and
+    # the front-to-back sweep (375 triangle tiles > 2 * 8)
+    grid512 = make_sphere_grid_scene(512, 512)
+    grenderer = SceneRenderer(grid512, cfg, dev)
+    grid_img, grid_counts = counted_frame(
+        grenderer, "CPU mode, grid 512x512, cuda",
+        ("nearest_hit", "nearest_dist", "fetch_rows"))
+    _, times = time_frames(grenderer, 2)
+    report_frames("CPU mode, grid 512x512, cuda", grenderer, times, cpu_rays, smi)
+    f2b = SceneRenderer(grid512, RenderConfig(backend="cuda", f2b_tiles=8), dev)
+    f2b_img, launches["front_to_back"] = counted_frame(
+        f2b, "CPU mode, grid 512x512, cuda, f2b_tiles=8",
+        ("nearest_hit", "nearest_dist", "fetch_rows"))
+    if launches["front_to_back"]["nearest_hit"] != 2 * grid_counts["nearest_hit"]:
+        raise AssertionError("front-to-back did not double the nearest_hit launches: "
+                             f"{launches['front_to_back']} against {grid_counts}")
+    if not torch.equal(f2b_img, grid_img):
+        raise AssertionError("the front-to-back frame differs from the plain sweep's")
+    say("render", "grid 512x512: front-to-back frame equal to the plain sweep's, "
+        "nearest_hit launches doubled")
+    _, times = time_frames(f2b, 2)
+    report_frames("CPU mode, grid 512x512, cuda, f2b_tiles=8", f2b, times, cpu_rays, smi)
 
-    replaces = {"nearest_hit": f"{PALLAS}:230", "nearest_dist": f"{PALLAS}:316",
-                "fetch_rows": f"{PALLAS}:523"}
+    # ---- GPU mode: 512x512 output at aliasing 3, shadows through the
+    # any-hit sweep, held against the same frame through the distance sweep
+    gpu_rays = 512 * 512 * ALIASING ** 2
+    gcfg = RenderConfig(mode="gpu", backend="cuda", aliasing=ALIASING, max_bounce=10)
+    any_cfg = RenderConfig(mode="gpu", backend="cuda", aliasing=ALIASING,
+                           max_bounce=10, any_hit_min_tris=0)
+    any_renderer = SceneRenderer(spheres512, any_cfg, dev)
+    any_img, launches["gpu_mode"] = counted_frame(
+        any_renderer, f"GPU mode, spheres 512x512 x{ALIASING}, cuda, any-hit",
+        ("nearest_hit", "fetch_rows", "any_hit"), none=("nearest_dist",))
+    dist_renderer = SceneRenderer(spheres512, gcfg, dev)
+    dist_img, _ = counted_frame(
+        dist_renderer, f"GPU mode, spheres 512x512 x{ALIASING}, cuda, distance sweep",
+        ("nearest_hit", "fetch_rows", "nearest_dist"), none=("any_hit",))
+    require_same_image(any_img, dist_img,
+                       "GPU mode: any-hit frame against the distance-sweep frame")
+    # two versions in one call, in turns
+    _, t_any = time_frames(any_renderer, 2)
+    _, t_dist = time_frames(dist_renderer, 2)
+    _, t_any2 = time_frames(any_renderer, 1)
+    report_frames(f"GPU mode, spheres 512x512 x{ALIASING}, cuda, any-hit",
+                  any_renderer, t_any + t_any2, gpu_rays, smi)
+    report_frames(f"GPU mode, spheres 512x512 x{ALIASING}, cuda, distance sweep",
+                  dist_renderer, t_dist, gpu_rays, smi)
+    if want_profile:
+        profile_frame(any_renderer, f"GPU mode, spheres 512x512 x{ALIASING}, any-hit")
+
+    small = make_sphere_scene(64, 64, **SPHERES)
+    require_same_image(
+        SceneRenderer(small, any_cfg, dev).render_device(),
+        SceneRenderer(small, RenderConfig(mode="gpu", backend="torch",
+                                          aliasing=ALIASING), dev).render_device(),
+        f"GPU mode, spheres 64x64 x{ALIASING}, cuda against the torch backend")
+
+    # ---- backend "cuda_matmul": the sphere scene at 512x512 in CPU mode
+    mm = SceneRenderer(spheres512, RenderConfig(backend="cuda_matmul"), dev)
+    mm_img, launches["matmul"] = counted_frame(
+        mm, "CPU mode, spheres 512x512, cuda_matmul",
+        ("nearest_hit_matmul", "nearest_dist_matmul", "fetch_rows"),
+        none=("nearest_hit", "nearest_dist", "any_hit"))
+    d = assert_images_close(u8(mm_img), u8(cuda_img), tol=1,
+                            context="cuda_matmul against cuda, spheres 512x512")
+    say("render", f"cuda_matmul against cuda, spheres 512x512: {d}")
+    _, times = time_frames(mm, 3)
+    report_frames("CPU mode, spheres 512x512, cuda_matmul", mm, times, cpu_rays, smi)
+    if want_profile:
+        profile_frame(mm, "CPU mode, spheres 512x512, cuda_matmul")
+
+    path_of = {"nearest_hit": "cpu_mode", "nearest_dist": "cpu_mode",
+               "fetch_rows": "cpu_mode", "any_hit": "gpu_mode",
+               "nearest_hit_matmul": "matmul", "nearest_dist_matmul": "matmul"}
     kernels = []
-    for name in ("nearest_hit", "nearest_dist", "fetch_rows"):
-        err, kms, pms = results[name]
+    for name, p in path_of.items():
         entry = {"name": name, "route": "cuda", "source": SOURCE,
-                 "replaces": replaces[name], "launches": launches[name],
-                 "max_abs_err": err, "ms": kms, "plain_ms": pms}
+                 "replaces": REPLACES[name], "launches": launches[p][name]}
+        entry.update({k: results[name][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        entry["path"] = p
+        entry["launches_by_path"] = {q: c[name] for q, c in launches.items()}
         if name == "fetch_rows":
             entry["also_replaces"] = f"{PALLAS}:568"
         kernels.append(entry)
@@ -275,4 +626,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

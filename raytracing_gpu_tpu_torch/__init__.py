@@ -1,7 +1,9 @@
 """raytracing_gpu_tpu_torch — the PyTorch + CUDA port of raytracing_gpu_tpu.
 
 Renders `.svati` scenes through the reference's CPU-mode pipeline (2x2
-supersampling, recursive mirrors, `match` or `smooth` quantization) on an
+supersampling, recursive mirrors) or its GPU-mode pipeline (aliasing-x
+supersampling, capped bounce loop, box downscale), in `match` or `smooth`
+quantization, on an
 NVIDIA GPU, with the intersection hot path in hand-written CUDA kernels
 (`ops/cuda_intersect.py`, `csrc/intersect.cu`). The JAX package
 `raytracing_gpu_tpu` is the reference it is tested against; this package

@@ -1,7 +1,8 @@
-"""Primary-ray generation (CPU-mode camera model).
+"""Primary-ray generation (the camera model of both reference pipelines).
 
 The JAX package's `ops/camera.py` (camera_basis, cpu_subpixel_coords_traced,
-make_rays), with every 3-term sum written out left-associated so the rays
+gpu_pixel_coords_traced, make_rays), with every 3-term sum written out
+left-associated so the rays
 are bit-identical to the JAX package's eager functions: image-plane centre
 C = position + w*L with L = width / (2 tan(fov*pi/360)); plane point
 C + u*k + v*l; direction normalize(position - point), the reference's
@@ -76,6 +77,17 @@ def cpu_subpixel_coords_traced(width: int, height: int, ray_ids):
     halfw, halfh = width // 2, height // 2
     k = (width - halfw - q).to(torch.float32) + 0.5 * (s // 2).to(torch.float32)
     l = (height - halfh - p).to(torch.float32) + 0.5 * (s % 2).to(torch.float32)
+    return torch.stack([k, l], dim=1)
+
+
+def gpu_pixel_coords_traced(width: int, height: int, ray_ids):
+    """(R,2) float32 plane coords (k, l) for flat hi-res ray ids
+    r = py*width + px of the GPU-mode pipeline: kernel thread (px, py) uses
+    offsets (px - width/2, py - height/2) (gpu/raytracer.cu:95-128)."""
+    px = ray_ids % width
+    py = ray_ids // width
+    k = (px - width // 2).to(torch.float32)
+    l = (py - height // 2).to(torch.float32)
     return torch.stack([k, l], dim=1)
 
 

@@ -1,5 +1,5 @@
 """Kernel path of the intersection: packing, tile culling, worklists and the
-three hand-written CUDA kernels, each beside its plain PyTorch version.
+six hand-written CUDA kernels, each beside its plain PyTorch version.
 
 The counterpart of the JAX package's `ops/pallas_intersect.py`:
 
@@ -10,16 +10,26 @@ The counterpart of the JAX package's `ops/pallas_intersect.py`:
   tiles by `pack_rays`) into an (nT, nR) mask of (triangle tile, ray tile)
   pairs that may hold a hit: brute force, flat per-ray slab tests, or the
   coarse-to-fine union-box hierarchy with interval tests below the top;
-- `nearest_hit` (K1), `nearest_dist` (K2) and `fetch_rows` (K3) launch the
+- `nearest_hit` (K1), `nearest_dist` (K2), `fetch_rows` (K3), `any_hit` (K4),
+  `nearest_hit_matmul` (K5) and `nearest_dist_matmul` (K6) launch the
   kernels of `csrc/intersect.cu` on CUDA tensors. On CPU tensors they run
   their plain versions, so every step around the kernels runs in the CPU
-  tests; on a CUDA tensor a wrapper launches its kernel or raises.
+  tests; on a CUDA tensor a wrapper launches its kernel or raises;
+- `nearest_hit_front_to_back` is the two-round composite over K1 (nearest
+  triangle tiles first, then only those a hit so far cannot rule out);
+- `ray_features` / `pack_tri_features` pack rays and triangles for the
+  matmul-form sweeps K5/K6, which compute the four Möller–Trumbore
+  determinants as dot products of 16 features.
 
 Every integer result (perm, masks, worklists, winner slots) equals the JAX
 package's. The distances equal the JAX package's eager (op-by-op)
 evaluation bit for bit, since both evaluate the same unfused float32
 operations in the same order; under jit XLA:CPU contracts multiply-adds into
-FMAs, so the Pallas kernels in interpret mode differ by a few ulp.
+FMAs, so the Pallas kernels in interpret mode differ by a few ulp. The
+matmul-form sweeps are the exception: their dot products are summed in a
+fixed left-to-right order that no XLA matmul promises, so against the JAX
+package they are held to a tolerance (as that package holds its own matmul
+backend to one); kernel and plain version still agree bit for bit.
 """
 
 from __future__ import annotations
@@ -38,10 +48,11 @@ TILE_T = 256
 INF = float("inf")
 _THIRD = float(np.float32(1.0 / 3.0))  # XLA's mean divides by 3 as * f32(1/3)
 
-# Launch counts of the three kernels, by wrapper name. A wrapper adds one
-# exactly where it launches its kernel (never on its plain path), so a run can
-# show that the main path went through the kernels.
-LAUNCHES = {"nearest_hit": 0, "nearest_dist": 0, "fetch_rows": 0}
+# Launch counts of the kernels, by wrapper name. A wrapper adds one exactly
+# where it launches its kernel (never on its plain path), so a run can show
+# that the main path went through the kernels.
+LAUNCHES = {"nearest_hit": 0, "nearest_dist": 0, "fetch_rows": 0,
+            "any_hit": 0, "nearest_hit_matmul": 0, "nearest_dist_matmul": 0}
 
 
 def reset_launch_counts() -> None:
@@ -225,9 +236,12 @@ def ray_tile_intervals(op, dp):
 
 
 def _interval_slab(op, dp, boxes, nonempty):
-    """(nB, nR) bool: could SOME live ray of the ray tile hit the box? An
-    interval slab test of the tile's origin box x direction box, with sound
-    division (a direction interval spanning 0 leaves its axis open)."""
+    """((nB, nR) bool hit, (nB, nR) float32 tlo). hit: could SOME live ray of
+    the ray tile hit the box? An interval slab test of the tile's origin box
+    x direction box, with sound division (a direction interval spanning 0
+    leaves its axis open). tlo: a sound lower bound (>= 0) on the slab-entry
+    parameter of any live ray of the tile, in units of the unnormalised
+    direction."""
     olo, ohi, dlo, dhi, any_live = ray_tile_intervals(op, dp)
     nB, nr = boxes.shape[0], olo.shape[1]
     tlo = op.new_full((nB, nr), -INF)
@@ -246,7 +260,22 @@ def _interval_slab(op, dp, boxes, nonempty):
         tlo = torch.maximum(tlo, torch.where(spans0, -INF, lo_k))
         thi = torch.minimum(thi, torch.where(spans0, INF, hi_k))
     hit = (thi >= tlo) & (thi >= 0.0)
-    return hit & nonempty[:, None] & any_live[None, :]
+    return hit & nonempty[:, None] & any_live[None, :], tlo.clamp(min=0.0)
+
+
+def tile_entry_lower(op, dp, boxes, nonempty):
+    """(nB, nR) float32 sound lower bound on the distance (t*|d|) at which
+    any live ray of a ray tile can first touch a box; +inf where the pair is
+    culled. The slab bound times the tile's smallest |d|, with a 1e-3
+    relative slack against the rounding differences between the slab
+    arithmetic and the sweeps' distance chain."""
+    hit, tlo = _interval_slab(op, dp, boxes, nonempty)
+    nr = op.shape[1] // TILE_R
+    d2 = ((dp[0] * dp[0] + dp[1] * dp[1]) + dp[2] * dp[2]).reshape(nr, TILE_R)
+    live = live_rays(op).reshape(nr, TILE_R)
+    dmin = sqrt_rn(torch.where(live, d2, INF).amin(1))
+    dmin = torch.where(torch.isfinite(dmin), dmin, 1.0)
+    return torch.where(hit, tlo * dmin[None, :] * 0.999, INF)
 
 
 def build_tile_levels(tile_aabb, tile_nonempty, branching: int = 8,
@@ -283,7 +312,7 @@ def tile_cull_mask_hierarchical(op, dp, pack: KernelPack, partitioning: str):
     levels = build_tile_levels(pack.tile_aabb, pack.tile_nonempty)
     mask = tile_cull_mask_packed(op, dp, *levels[0])
     for boxes, nonempty in levels[1:] + [(pack.tile_aabb, pack.tile_nonempty)]:
-        child = _interval_slab(op, dp, boxes, nonempty).to(torch.int32)
+        child = _interval_slab(op, dp, boxes, nonempty)[0].to(torch.int32)
         mask = child * torch.repeat_interleave(mask, 8, dim=0)[:boxes.shape[0]]
     return mask
 
@@ -364,41 +393,171 @@ def first_argmin(dist):
 _PLAIN_PAIRS = 1 << 24
 
 
-def _plain_sweep(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps,
-                 want_idx: bool):
-    Rp, Tp = op.shape[1], v0.shape[0]
+def _plain_sweep(pair_dist, Rp: int, Tp: int, tile_mask, fold: str):
+    """Fold `pair_dist(r0, r1)` -- the (r1-r0, Tp) distances of a block of
+    rays against every triangle, +inf where rejected -- over the pair tiles
+    tile_mask keeps. fold "argmin": (min (Rp,), lowest slot (Rp,) int32);
+    "min": the minimum; "any": (Rp,) bool, some pair accepted."""
     rb = max(TILE_R, (_PLAIN_PAIRS // Tp) // TILE_R * TILE_R)
-    dist_out = op.new_empty((Rp,))
-    idx_out = torch.empty((Rp,), dtype=torch.int32, device=op.device)
+    dev = tile_mask.device
+    dist_out = torch.empty((Rp,), dtype=torch.float32, device=dev)
+    idx_out = torch.empty((Rp,), dtype=torch.int32, device=dev)
     for r0 in range(0, Rp, rb):
         r1 = min(r0 + rb, Rp)
-        dist = mt_pairs(op[:, r0:r1].t(), dp[:, r0:r1].t(), v0, e1, e2,
-                        mt_eps, self_hit_eps, ref_dist=want_idx)[0]
         keep = (tile_mask[:, r0 // TILE_R:r1 // TILE_R] > 0).t()
         keep = keep.repeat_interleave(TILE_R, 0).repeat_interleave(TILE_T, 1)
-        dist = torch.where(keep, dist, INF)
-        if want_idx:
+        dist = torch.where(keep, pair_dist(r0, r1), INF)
+        if fold == "argmin":
             dist_out[r0:r1], idx_out[r0:r1] = first_argmin(dist)
         else:
             dist_out[r0:r1] = dist.amin(1)
-    return dist_out, idx_out
+    if fold == "argmin":
+        return dist_out, idx_out
+    return dist_out < INF if fold == "any" else dist_out
+
+
+def _mt_sweep(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps, fold):
+    def pair_dist(r0, r1):
+        return mt_pairs(op[:, r0:r1].t(), dp[:, r0:r1].t(), v0, e1, e2,
+                        mt_eps, self_hit_eps, ref_dist=fold == "argmin")[0]
+    return _plain_sweep(pair_dist, op.shape[1], v0.shape[0], tile_mask, fold)
 
 
 def nearest_hit_plain(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
     """Plain version of K1: all pairs of the masked tiles in ray blocks;
     (dist (Rp,) +inf on a miss, idx (Rp,) int32 clustered slot, 0 on a miss)."""
-    return _plain_sweep(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps, True)
+    return _mt_sweep(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps,
+                     "argmin")
 
 
 def nearest_dist_plain(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
     """Plain version of K2: the masked minimum of t*|d| per ray."""
-    return _plain_sweep(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps,
-                        False)[0]
+    return _mt_sweep(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps, "min")
+
+
+def live_rays(op):
+    """(Rp,) bool: rays that are neither parked nor padding (every origin
+    component below 1e20 in magnitude)."""
+    return (op.abs() < 1e20).all(0)
+
+
+def any_hit_plain(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
+    """Plain version of K4: (Rp,) bool, some pair of the masked tiles is
+    accepted (K2's acceptance chain); False for dead rays."""
+    return _mt_sweep(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps,
+                     "any") & live_rays(op)
 
 
 def fetch_rows_plain(table, idx):
     """Plain version of K3: table[idx]."""
     return table[idx.long()]
+
+
+# ---------------------------------------------------------------------------
+# Matmul form (K5/K6): Möller–Trumbore as dot products of 16 features
+# ---------------------------------------------------------------------------
+
+N_FEATURES = 16  # feature rows; 14 (rays) and 10 (triangles) are used
+
+
+def ray_features(op, dp):
+    """Packed (3, Rp) rays -> (16, Rp) feature planes: rows 0-2 d, 3-5
+    m = o x d, 6-8 o, 9 ones, 10 |d|, 11-13 d/|d|, 14-15 zero."""
+    ox, oy, oz = op[0], op[1], op[2]
+    dx, dy, dz = dp[0], dp[1], dp[2]
+    m = torch.stack([oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx])
+    dlen2 = (dx * dx + dy * dy) + dz * dz
+    dlen = sqrt_rn(torch.where(dlen2 > 0.0, dlen2, 1.0))[None, :]
+    return torch.cat([dp, m, op, torch.ones_like(dlen), dlen, dp / dlen,
+                      op.new_zeros((N_FEATURES - 14, op.shape[1]))]).contiguous()
+
+
+def _cross(a, b):
+    ax, ay, az = a[:, 0], a[:, 1], a[:, 2]
+    bx, by, bz = b[:, 0], b[:, 1], b[:, 2]
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], 1)
+
+
+def pack_tri_features(v0, e1, e2):
+    """Padded (Tp,3) v0/e1/e2 -> (4, 16, Tp) feature planes [a; u_num; v_num;
+    t_num], so that plane . ray features gives the four determinants:
+    a = -n.d; u_num = -(e2 x v0).d + e2.m; v_num = -(v0 x e1).d - e1.m;
+    t_num = n.o - v0.n, with n = e1 x e2. Rows 3-15 of plane 0, 6-15 of planes
+    1-2 and 0-5, 10-15 of plane 3 are zero by construction; degenerate
+    triangles (e1 = e2 = 0) give a = 0 and are rejected."""
+    n = _cross(e1, e2)
+    Tp = v0.shape[0]
+    g = v0.new_zeros((4, Tp, N_FEATURES))
+    g[0, :, 0:3] = -n
+    g[1, :, 0:3] = -_cross(e2, v0)
+    g[1, :, 3:6] = e2
+    g[2, :, 0:3] = -_cross(v0, e1)
+    g[2, :, 3:6] = -e1
+    g[3, :, 6:9] = n
+    vn = v0 * n
+    g[3, :, 9] = -((vn[:, 0] + vn[:, 1]) + vn[:, 2])
+    return g.permute(0, 2, 1).contiguous()
+
+
+def live_centroid(origins):
+    """(3,) mean origin of the live rays of an (R,3) batch (|o| < 1e20 on
+    every axis; parked rays would blow it up), zero when none is live."""
+    live = (origins.abs() < 1e20).all(-1)
+    n_live = live.sum().to(origins.dtype).clamp(min=1.0)
+    return torch.where(live[:, None], origins, 0.0).sum(0) / n_live
+
+
+def _chain(g, f, rows):
+    """Left-to-right sum over feature rows of g[row] (Tp,) * f[row] (R,1):
+    the kernels' dot product, each multiply and add rounded on its own."""
+    acc = g[rows[0]][None, :] * f[rows[0]][:, None]
+    for k in rows[1:]:
+        acc = acc + g[k][None, :] * f[k][:, None]
+    return acc
+
+
+def _matmul_pairs(f, g, mt_eps, self_hit_eps, ref_dist: bool):
+    """All (ray, triangle) pairs in matmul form: f (16,R) ray features, g
+    (4,16,Tp) triangle features -> (R,Tp) distances, +inf where rejected.
+    The four products run over the rows that are not zero by construction,
+    then the JAX package's `_mxu_tile` epilogue operation for operation."""
+    mt_eps, self_hit_eps = f32(mt_eps), f32(self_hit_eps)
+    a = _chain(g[0], f, (0, 1, 2))
+    ok = a.abs() >= mt_eps
+    inv = 1.0 / torch.where(ok, a, 1.0)
+    u = _chain(g[1], f, (0, 1, 2, 3, 4, 5)) * inv
+    ok &= (u >= 0.0) & (u <= 1.0)
+    v = _chain(g[2], f, (0, 1, 2, 3, 4, 5)) * inv
+    ok &= (v >= 0.0) & (u + v <= 1.0)
+    t = _chain(g[3], f, (6, 7, 8, 9)) * inv
+    ok &= t > mt_eps
+    td = t * f[10][:, None]
+    if ref_dist:  # |fl(o + nd*(t*|d|)) - o| from the recentred origin
+        dd = [(f[6 + k][:, None] + f[11 + k][:, None] * td) - f[6 + k][:, None]
+              for k in range(3)]
+        dist = sqrt_rn((dd[0] * dd[0] + dd[1] * dd[1]) + dd[2] * dd[2])
+    else:
+        dist = td
+    ok &= dist > self_hit_eps
+    return torch.where(ok, dist, INF)
+
+
+def _matmul_sweep(rayf, g, tile_mask, mt_eps, self_hit_eps, fold):
+    def pair_dist(r0, r1):
+        return _matmul_pairs(rayf[:, r0:r1], g, mt_eps, self_hit_eps,
+                             ref_dist=fold == "argmin")
+    return _plain_sweep(pair_dist, rayf.shape[1], g.shape[2], tile_mask, fold)
+
+
+def nearest_hit_matmul_plain(rayf, g, tile_mask, mt_eps, self_hit_eps):
+    """Plain version of K5: (dist (Rp,), idx (Rp,) int32) as K1's."""
+    return _matmul_sweep(rayf, g, tile_mask, mt_eps, self_hit_eps, "argmin")
+
+
+def nearest_dist_matmul_plain(rayf, g, tile_mask, mt_eps, self_hit_eps):
+    """Plain version of K6: the masked minimum of t*|d| per ray."""
+    return _matmul_sweep(rayf, g, tile_mask, mt_eps, self_hit_eps, "min")
 
 
 # ---------------------------------------------------------------------------
@@ -419,8 +578,14 @@ def _lib():
     sweep = [_P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _F, _P]
     lib.rgt_nearest_hit.argtypes = sweep + [_P, _P]
     lib.rgt_nearest_dist.argtypes = sweep + [_P]
+    lib.rgt_any_hit.argtypes = sweep + [_P, _P]
     lib.rgt_fetch_rows.argtypes = [_P, _I, _I, _P, _I, _P, _P]
-    for fn in (lib.rgt_nearest_hit, lib.rgt_nearest_dist, lib.rgt_fetch_rows):
+    matmul = [_P, _I, _P, _I, _P, _P, _I, _F, _F, _P]
+    lib.rgt_nearest_hit_matmul.argtypes = matmul + [_P, _P]
+    lib.rgt_nearest_dist_matmul.argtypes = matmul + [_P]
+    for fn in (lib.rgt_nearest_hit, lib.rgt_nearest_dist, lib.rgt_fetch_rows,
+               lib.rgt_any_hit, lib.rgt_nearest_hit_matmul,
+               lib.rgt_nearest_dist_matmul):
         fn.restype = _I
     lib.rgt_error_string.argtypes = [_I]
     lib.rgt_error_string.restype = ctypes.c_char_p
@@ -462,36 +627,70 @@ def _check(code: int, what: str) -> None:
                            f"{_lib().rgt_error_string(code).decode()} ({code})")
 
 
-def _launch_sweep(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps,
-                  want_idx: bool):
-    Rp, Tp = op.shape[1], v0.shape[0]
+def _ray_worklist(tile_mask, Rp: int, Tp: int):
+    """Checked (order, count) of a (Tp/256, Rp/256) tile mask: per ray tile,
+    its surviving triangle tiles in ascending order."""
     if Rp % TILE_R or Tp % TILE_T:
         raise ValueError(f"rays ({Rp}) and triangles ({Tp}) must be padded "
                          f"to multiples of {TILE_R}/{TILE_T}")
     nR, nT = Rp // TILE_R, Tp // TILE_T
-    for name, t, shape in (("op", op, (3, Rp)), ("dp", dp, (3, Rp)),
-                           ("v0", v0, (Tp, 3)), ("e1", e1, (Tp, 3)),
-                           ("e2", e2, (Tp, 3))):
-        _require(t, name, torch.float32, shape)
     if tuple(tile_mask.shape) != (nT, nR):
         raise ValueError(f"tile_mask: expected shape {(nT, nR)}, got "
                          f"{tuple(tile_mask.shape)}")
-    # per ray tile: its surviving triangle tiles in ascending order
-    order, count = (t.contiguous() for t in tile_worklist(tile_mask.t()))
-    dist = torch.empty((Rp,), dtype=torch.float32, device=op.device)
-    idx = torch.empty((Rp,), dtype=torch.int32, device=op.device) if want_idx else None
+    return tuple(t.contiguous() for t in tile_worklist(tile_mask.t()))
+
+
+def _launch_sweep(name: str, op, dp, v0, e1, e2, tile_mask, mt_eps,
+                  self_hit_eps):
+    """Launch K1 ("nearest_hit"), K2 ("nearest_dist") or K4 ("any_hit"):
+    (first output, second output or None)."""
+    Rp, Tp = op.shape[1], v0.shape[0]
+    for what, t, shape in (("op", op, (3, Rp)), ("dp", dp, (3, Rp)),
+                           ("v0", v0, (Tp, 3)), ("e1", e1, (Tp, 3)),
+                           ("e2", e2, (Tp, 3))):
+        _require(t, what, torch.float32, shape)
+    order, count = _ray_worklist(tile_mask, Rp, Tp)
+    dev = op.device
+    if name == "any_hit":
+        out = torch.empty((Rp,), dtype=torch.bool, device=dev)
+        extra = torch.empty((Rp // TILE_R,), dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty((Rp,), dtype=torch.float32, device=dev)
+        extra = (torch.empty((Rp,), dtype=torch.int32, device=dev)
+                 if name == "nearest_hit" else None)
+    if Rp == 0:
+        return out, extra
+    fn = getattr(_lib(), "rgt_" + name)
+    args = [op.data_ptr(), dp.data_ptr(), Rp, v0.data_ptr(), e1.data_ptr(),
+            e2.data_ptr(), order.data_ptr(), count.data_ptr(), Tp // TILE_T,
+            f32(mt_eps), f32(self_hit_eps), out.data_ptr()]
+    if extra is not None:
+        args.append(extra.data_ptr())
+    _check(fn(*args, torch.cuda.current_stream(dev).cuda_stream), name)
+    LAUNCHES[name] += 1
+    return out, extra
+
+
+def _launch_matmul_sweep(name: str, rayf, g, tile_mask, mt_eps, self_hit_eps):
+    """Launch K5 ("nearest_hit_matmul") or K6 ("nearest_dist_matmul")."""
+    Rp, Tp = rayf.shape[1], g.shape[2]
+    _require(rayf, "rayf", torch.float32, (N_FEATURES, Rp))
+    _require(g, "g", torch.float32, (4, N_FEATURES, Tp))
+    order, count = _ray_worklist(tile_mask, Rp, Tp)
+    dev = rayf.device
+    dist = torch.empty((Rp,), dtype=torch.float32, device=dev)
+    idx = (torch.empty((Rp,), dtype=torch.int32, device=dev)
+           if name == "nearest_hit_matmul" else None)
     if Rp == 0:
         return dist, idx
-    stream = torch.cuda.current_stream(op.device).cuda_stream
-    args = [op.data_ptr(), dp.data_ptr(), Rp, v0.data_ptr(), e1.data_ptr(),
-            e2.data_ptr(), order.data_ptr(), count.data_ptr(), nT,
-            f32(mt_eps), f32(self_hit_eps), dist.data_ptr()]
-    if want_idx:
-        _check(_lib().rgt_nearest_hit(*args, idx.data_ptr(), stream), "nearest_hit")
-        LAUNCHES["nearest_hit"] += 1
-    else:
-        _check(_lib().rgt_nearest_dist(*args, stream), "nearest_dist")
-        LAUNCHES["nearest_dist"] += 1
+    args = [rayf.data_ptr(), Rp, g.data_ptr(), Tp, order.data_ptr(),
+            count.data_ptr(), Tp // TILE_T, f32(mt_eps), f32(self_hit_eps),
+            dist.data_ptr()]
+    if idx is not None:
+        args.append(idx.data_ptr())
+    _check(getattr(_lib(), "rgt_" + name)(
+        *args, torch.cuda.current_stream(dev).cuda_stream), name)
+    LAUNCHES[name] += 1
     return dist, idx
 
 
@@ -504,7 +703,8 @@ def nearest_hit(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
     lowest on a tie, 0 on a miss). Replaces nearest_hit_pallas."""
     if _on_cpu(op, dp, v0, e1, e2, tile_mask):
         return nearest_hit_plain(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps)
-    return _launch_sweep(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps, True)
+    return _launch_sweep("nearest_hit", op, dp, v0, e1, e2, tile_mask, mt_eps,
+                         self_hit_eps)
 
 
 def nearest_dist(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
@@ -513,8 +713,77 @@ def nearest_dist(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
     nearest_dist_pallas."""
     if _on_cpu(op, dp, v0, e1, e2, tile_mask):
         return nearest_dist_plain(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps)
-    return _launch_sweep(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps,
-                         False)[0]
+    return _launch_sweep("nearest_dist", op, dp, v0, e1, e2, tile_mask, mt_eps,
+                         self_hit_eps)[0]
+
+
+def any_hit_walked(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
+    """K4 with its work count: (occluded (Rp,) bool, walked (Rp/256,) int32
+    -- the triangle tiles each ray tile scanned before every live lane was
+    occluded or its worklist ended). CUDA tensors only."""
+    if _on_cpu(op, dp, v0, e1, e2, tile_mask):
+        raise ValueError("any_hit_walked reports the kernel's work: CUDA "
+                         "tensors only")
+    return _launch_sweep("any_hit", op, dp, v0, e1, e2, tile_mask, mt_eps,
+                         self_hit_eps)
+
+
+def any_hit(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
+    """K4: (Rp,) bool, the ray has some accepted hit over the pair tiles
+    tile_mask keeps -- exactly `nearest_dist(...) < inf`, without the minimum,
+    and a ray tile stops walking once every live lane is occluded. Dead rays
+    (parked or padding, |origin| >= 1e20) report False. Replaces
+    any_hit_pallas."""
+    if _on_cpu(op, dp, v0, e1, e2, tile_mask):
+        return any_hit_plain(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps)
+    return any_hit_walked(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps)[0]
+
+
+def nearest_hit_matmul(rayf, g, tile_mask, mt_eps, self_hit_eps):
+    """K5: K1's result from the matmul form. rayf (16,Rp) from ray_features
+    (of recentred rays), g (4,16,Tp) from pack_tri_features, tile_mask as
+    K1's. Returns (dist (Rp,) from the recentred origin, +inf on a miss; idx
+    (Rp,) int32 clustered slot). Replaces nearest_hit_mxu."""
+    if _on_cpu(rayf, g, tile_mask):
+        return nearest_hit_matmul_plain(rayf, g, tile_mask, mt_eps, self_hit_eps)
+    return _launch_matmul_sweep("nearest_hit_matmul", rayf, g, tile_mask,
+                                mt_eps, self_hit_eps)
+
+
+def nearest_dist_matmul(rayf, g, tile_mask, mt_eps, self_hit_eps):
+    """K6: minimum accepted t*|d| per ray from the matmul form ((Rp,), +inf
+    on a miss). Replaces nearest_dist_mxu."""
+    if _on_cpu(rayf, g, tile_mask):
+        return nearest_dist_matmul_plain(rayf, g, tile_mask, mt_eps, self_hit_eps)
+    return _launch_matmul_sweep("nearest_dist_matmul", rayf, g, tile_mask,
+                                mt_eps, self_hit_eps)[0]
+
+
+def nearest_hit_front_to_back(op, dp, pack: KernelPack, tile_mask, mt_eps,
+                              self_hit_eps, k_near: int):
+    """K1's result in two rounds: first each ray tile's k_near nearest
+    surviving triangle tiles (by `tile_entry_lower`), then only the remaining
+    tiles whose entry bound does not exceed the farthest hit the ray tile
+    has so far (+inf as soon as one of its rays missed). A skipped tile
+    starts beyond every ray's current winner, so it can neither beat nor tie
+    one: the result equals a single sweep of tile_mask exactly. Replaces
+    nearest_hit_front_to_back of the JAX package."""
+    keep = tile_mask > 0
+    nt = tile_mask.shape[0]
+    tent = torch.where(keep, tile_entry_lower(op, dp, pack.tile_aabb,
+                                              pack.tile_nonempty), INF)
+    kth = torch.sort(tent, dim=0).values[min(k_near, nt) - 1]
+    near = tent <= kth[None, :]
+    sweep = (op, dp, pack.v0, pack.e1, pack.e2)
+    dist_a, idx_a = nearest_hit(*sweep, (keep & near).to(torch.int32),
+                                mt_eps, self_hit_eps)
+    cut = dist_a.reshape(-1, TILE_R).amax(1)
+    mask_b = keep & ~near & (tent <= cut[None, :] * 1.0001)
+    dist_b, idx_b = nearest_hit(*sweep, mask_b.to(torch.int32), mt_eps,
+                                self_hit_eps)
+    # the winner across rounds: lexicographic (distance, slot) minimum
+    better = (dist_b < dist_a) | ((dist_b == dist_a) & (idx_b < idx_a))
+    return torch.where(better, dist_b, dist_a), torch.where(better, idx_b, idx_a)
 
 
 def fetch_rows(table, idx):

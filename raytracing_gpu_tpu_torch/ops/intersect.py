@@ -1,4 +1,4 @@
-"""Nearest-hit and shadow intersection on two backends.
+"""Nearest-hit and shadow intersection on three backends.
 
 The JAX package's `ops/intersect.py`: `collide` is the reference's `collide`
 (cpu/hit.c:72-91), nearest accepted hit with first-occurrence ties;
@@ -12,7 +12,14 @@ The JAX package's `ops/intersect.py`: `collide` is the reference's `collide`
 - backend "cuda": the kernel path of `ops/cuda_intersect.py` — tile culling,
   the K1/K2 sweeps and the K3 winner-row fetch — then u/v/t, hit point and
   normal recomputed on the winner with plain tensor ops. Winners are in
-  clustered order, the JAX "pallas" backend's tie-break.
+  clustered order, the JAX "pallas" backend's tie-break. `f2b_tiles > 0`
+  takes the two-round front-to-back sweep over K1 on scenes with more than
+  2*f2b_tiles triangle tiles; `any_hit_min_tris` at or below the triangle
+  count sends `collide_any` through the any-hit sweep K4.
+- backend "cuda_matmul": the same path with the matmul-form sweeps K5/K6
+  (the JAX "mxu" backend): rays recentred on the centroid of the live rays,
+  the four determinants as 16-feature dot products. Their association
+  differs from the scalar form, so winners may flip on exact geometry edges.
 """
 
 from __future__ import annotations
@@ -21,10 +28,12 @@ import dataclasses
 
 import torch
 
+from raytracing_gpu_tpu_torch.config import ANY_HIT_OFF
 from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
 from raytracing_gpu_tpu_torch.ops.fp import f32, sqrt_rn
 
 INF = float("inf")
+KERNEL_BACKENDS = ("cuda", "cuda_matmul")
 
 # pairs per block of the all-pairs "torch" backend: bounds its memory
 _PAIRS_PER_BLOCK = 1 << 22
@@ -86,22 +95,50 @@ def _dir_length(dirs):
     return sqrt_rn(torch.where(d2 > 0.0, d2, 1.0))
 
 
+@torch.no_grad()  # a sweep only selects
+def _kernel_sweep(origins, dirs, pack, mt_eps, self_hit_eps, backend,
+                  partitioning, want_idx: bool, f2b_tiles: int = 0):
+    """Pack and cull a ray batch and sweep it on a kernel backend: (dist
+    (Rp,) +inf on a miss, idx (Rp,) int32 clustered slots or None)."""
+    op, dp, _ = ck.pack_rays(origins, dirs)
+    if backend == "cuda_matmul":
+        # Möller–Trumbore is translation invariant, and the expanded triple
+        # products cancel badly when |o| is large against the local geometry:
+        # recentre rays, boxes and triangles on the live rays' centroid
+        c = ck.live_centroid(origins)
+        oc = op - c[:, None]
+        tmask = ck.tile_cull_mask_hierarchical(
+            oc, dp, pack._replace(tile_aabb=pack.tile_aabb - c), partitioning)
+        rayf = ck.ray_features(oc, dp)
+        g = ck.pack_tri_features(pack.v0 - c, pack.e1, pack.e2)
+        if want_idx:
+            return ck.nearest_hit_matmul(rayf, g, tmask, mt_eps, self_hit_eps)
+        return ck.nearest_dist_matmul(rayf, g, tmask, mt_eps, self_hit_eps), None
+    tmask = ck.tile_cull_mask_hierarchical(op, dp, pack, partitioning)
+    sweep = (op, dp, pack.v0, pack.e1, pack.e2, tmask, mt_eps, self_hit_eps)
+    if not want_idx:
+        return ck.nearest_dist(*sweep), None
+    if (f2b_tiles > 0 and partitioning != "none"
+            and tmask.shape[0] > 2 * f2b_tiles):
+        return ck.nearest_hit_front_to_back(op, dp, pack, tmask, mt_eps,
+                                            self_hit_eps, f2b_tiles)
+    return ck.nearest_hit(*sweep)
+
+
 def collide(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
             backend: str = "torch", pack=None,
-            partitioning: str = "octree") -> Hit:
+            partitioning: str = "octree", f2b_tiles: int = 0) -> Hit:
     """Nearest hit over all triangles (cpu/hit.c:72-91)."""
     R = origins.shape[0]
     dlen = _dir_length(dirs)
     mat = None
-    if backend == "cuda":
+    if backend in KERNEL_BACKENDS:
         if pack is None or pack.table is None:  # collide needs the winner table
             pack = ck.pack_geometry(geometry.vertices, geometry.valid,
                                     geometry.normals, geometry.tri_obj)
-        with torch.no_grad():  # the sweep only selects
-            op, dp, _ = ck.pack_rays(origins, dirs)
-            tmask = ck.tile_cull_mask_hierarchical(op, dp, pack, partitioning)
-            sweep_dist, idx = ck.nearest_hit(op, dp, pack.v0, pack.e1, pack.e2,
-                                             tmask, mt_eps, self_hit_eps)
+        sweep_dist, idx = _kernel_sweep(origins, dirs, pack, mt_eps,
+                                        self_hit_eps, backend, partitioning,
+                                        True, f2b_tiles)
         rows = ck.fetch_rows(pack.table, idx[:R])
         tri_n = rows[:, ck.COL_N].reshape(R, 3, 3)
         obj = rows[:, ck.COL_OBJ].to(torch.int32)
@@ -156,16 +193,14 @@ def collide(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
 def collide_dist(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
                  backend: str = "torch", pack=None, partitioning: str = "octree"):
     """Nearest accepted distance per ray, 0.0 on a miss (cpu/hit.c:93-109).
-    The cuda backend's K2 returns t*|d|; shadows read only `!= 0`."""
+    The kernel backends' K2/K6 return t*|d|; shadows read only `!= 0`."""
     R = origins.shape[0]
     with torch.no_grad():
-        if backend == "cuda":
+        if backend in KERNEL_BACKENDS:
             if pack is None:
                 pack = ck.pack_geometry(geometry.vertices, geometry.valid)
-            op, dp, _ = ck.pack_rays(origins, dirs)
-            tmask = ck.tile_cull_mask_hierarchical(op, dp, pack, partitioning)
-            m = ck.nearest_dist(op, dp, pack.v0, pack.e1, pack.e2, tmask,
-                                mt_eps, self_hit_eps)[:R]
+            m = _kernel_sweep(origins, dirs, pack, mt_eps, self_hit_eps,
+                              backend, partitioning, False)[0][:R]
         elif backend == "torch":
             m = origins.new_empty((R,))
             for r0, r1 in _ray_blocks(R, geometry.vertices.shape[0]):
@@ -178,10 +213,22 @@ def collide_dist(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
 
 
 def collide_any(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
-                backend: str = "torch", pack=None, partitioning: str = "octree"):
+                backend: str = "torch", pack=None, partitioning: str = "octree",
+                any_hit_min_tris: int = ANY_HIT_OFF):
     """(R,) bool: any accepted hit — what the shadow test reads
-    (`has_direct_hit`, cpu/light.c:24-31). The JAX package's any-hit kernel
-    is off on its main path (ANY_HIT_MIN_TRIS = 1 << 30), so this is
-    `collide_dist != 0` on both backends."""
+    (`has_direct_hit`, cpu/light.c:24-31, occludes on any hit; its distance
+    comparison is dead code). On backend "cuda", a scene of at least
+    `any_hit_min_tris` (padded) triangles goes through the any-hit sweep K4,
+    whose ray tiles stop once every live lane is occluded; everything else
+    is `collide_dist != 0`, the same boolean by construction. The default
+    threshold keeps K4 off, as the JAX package's ANY_HIT_MIN_TRIS does."""
+    if backend == "cuda" and geometry.vertices.shape[0] >= any_hit_min_tris:
+        if pack is None:
+            pack = ck.pack_geometry(geometry.vertices, geometry.valid)
+        with torch.no_grad():
+            op, dp, R = ck.pack_rays(origins, dirs)
+            tmask = ck.tile_cull_mask_hierarchical(op, dp, pack, partitioning)
+            return ck.any_hit(op, dp, pack.v0, pack.e1, pack.e2, tmask,
+                              mt_eps, self_hit_eps)[:R]
     return collide_dist(origins, dirs, geometry, mt_eps, self_hit_eps,
                         backend, pack, partitioning) != 0.0

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from raytracing_gpu_tpu_torch.config import ANY_HIT_OFF
 from raytracing_gpu_tpu_torch.models.scene import AMBIENT, DIRECTIONAL, POINT
 from raytracing_gpu_tpu_torch.ops.colors import ColorOps
 from raytracing_gpu_tpu_torch.ops.fp import sqrt_rn
@@ -77,7 +78,8 @@ def shadow_rays(lights, hit: Hit):
 
 
 def shade(scene, hit: Hit, cops: ColorOps, mt_eps=1e-7, self_hit_eps=0.01,
-          backend="torch", pack=None, partitioning="octree"):
+          backend="torch", pack=None, partitioning="octree",
+          any_hit_min_tris=ANY_HIT_OFF):
     """(R,3) colors of a batch of hits in the cops domain; rays with
     hit.mask False get garbage (the caller masks them)."""
     R = hit.point.shape[0]
@@ -90,7 +92,8 @@ def shade(scene, hit: Hit, cops: ColorOps, mt_eps=1e-7, self_hit_eps=0.01,
     so, sd, block = shadow_rays(lights, hit)
     if so is not None:
         occluded = collide_any(so, sd, scene.geometry, mt_eps, self_hit_eps,
-                               backend, pack, partitioning).reshape(-1, R)
+                               backend, pack, partitioning,
+                               any_hit_min_tris).reshape(-1, R)
 
     contribs = {}
     for kind in (DIRECTIONAL, POINT):

@@ -11,8 +11,10 @@ culling and worklists, and the plain versions of the three CUDA kernels.
   JAX package's eager `_mt_core` (one op at a time, no contraction) on the
   same clustered triangles the plain K1 is bit-exact.
 - Plain K3 against `fetch_winner_rows`: exact.
-The CUDA kernels themselves are compared with these plain versions on the
-card (test_cuda_kernels_match_plain, marked `cuda`, and chip_smoke.py).
+The CUDA kernels themselves (these three and K4-K6, whose plain versions
+tests/test_torch_anyhit_f2b.py and tests/test_torch_matmul.py hold against
+the JAX package) are compared with the plain versions on the card
+(test_cuda_kernels_match_plain, marked `cuda`, and chip_smoke.py).
 """
 
 import dataclasses
@@ -137,7 +139,7 @@ def test_octree_levels_cull_beyond_the_leaf_test():
     tm = ck.tile_cull_mask_hierarchical(top, tdp, tpack, "octree")
     np.testing.assert_array_equal(
         tm.numpy(), np.asarray(pk.tile_cull_mask_hierarchical(jop, jdp, jpack, "octree")))
-    leaf_only = ck._interval_slab(top, tdp, tpack.tile_aabb, tpack.tile_nonempty)
+    leaf_only = ck._interval_slab(top, tdp, tpack.tile_aabb, tpack.tile_nonempty)[0]
     assert (tm.bool() <= leaf_only).all()
     assert (leaf_only & ~tm.bool()).any()
 
@@ -265,7 +267,7 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain(cuda_device):
-    """K1, K2 and K3 on the card equal their plain versions bit for bit."""
+    """Every kernel on the card equals its plain version bit for bit."""
     jscene = _jittered(jproc.make_sphere_grid_scene(
         width=16, height=16, nx=4, ny=4, nz=2, n_lat=16, n_lon=20))
     s = scene_from_numpy(jscene).to(cuda_device)
@@ -285,5 +287,15 @@ def test_cuda_kernels_match_plain(cuda_device):
                        ck.nearest_dist_plain(*args).view(torch.int32))
     assert torch.equal(ck.fetch_rows(pack.table, ki[:R]),
                        ck.fetch_rows_plain(pack.table, ki[:R]))
-    assert {k: ck.LAUNCHES[k] - before[k] for k in before} == {
-        "nearest_hit": 1, "nearest_dist": 1, "fetch_rows": 1}
+    assert torch.equal(ck.any_hit(*args), ck.any_hit_plain(*args))
+    c = ck.live_centroid(op.t()[:R])
+    rayf = ck.ray_features(op - c[:, None], dp)
+    feats = ck.pack_tri_features(pack.v0 - c, pack.e1, pack.e2)
+    margs = (rayf, feats, mask, *EPS)
+    md, mi = ck.nearest_hit_matmul(*margs)
+    qd, qi = ck.nearest_hit_matmul_plain(*margs)
+    assert torch.equal(mi, qi)
+    assert torch.equal(md.view(torch.int32), qd.view(torch.int32))
+    assert torch.equal(ck.nearest_dist_matmul(*margs).view(torch.int32),
+                       ck.nearest_dist_matmul_plain(*margs).view(torch.int32))
+    assert {k: ck.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 1)

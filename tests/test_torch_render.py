@@ -190,13 +190,27 @@ def test_kernel_render_on_cpu_launches_nothing():
 
 
 def test_unported_options_raise():
+    """The options that used to raise now render through every entry point
+    (GPU mode, the front-to-back sweep, the any-hit sweep, the matmul
+    backend); what the port does not have is still refused by name, and the
+    differentiable path's `unroll` is validated and otherwise ignored."""
     tscene = scene_from_numpy(jproc.make_sphere_scene(width=8, height=8, n_lat=6, n_lon=9))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SceneRenderer(tscene, RenderConfig(mode="gpu"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_scene(tscene, RenderConfig(f2b_tiles=4), device="cpu")
-    with pytest.raises(ValueError):
-        RenderConfig(backend="pallas")
+    base = render_scene(tscene, RenderConfig(), device="cpu")
+    gpu = SceneRenderer(tscene, RenderConfig(mode="gpu"), device="cpu").render()
+    assert gpu.shape == base.shape == (8, 8, 3) and gpu.max() > 0.0
+    assert not np.array_equal(gpu, base)  # another sampling grid
+    for kw in (dict(f2b_tiles=4), dict(any_hit_min_tris=0), dict(unroll="static"),
+               dict(unroll="while", remat=False)):
+        np.testing.assert_array_equal(
+            render_scene(tscene, RenderConfig(**kw), device="cpu"), base, err_msg=str(kw))
+    img = render_scene(tscene, RenderConfig(backend="cuda_matmul"), device="cpu")
+    assert_images_close(np.trunc(img).astype(np.uint8), np.trunc(base).astype(np.uint8),
+                        tol=1, context="cuda_matmul vs cuda")
+    for bad in (dict(backend="pallas"), dict(backend="mxu"), dict(backend="jnp"),
+                dict(mode="tpu"), dict(f2b_tiles=-1), dict(any_hit_min_tris=-1),
+                dict(unroll="scan")):
+        with pytest.raises(ValueError):
+            RenderConfig(**bad)
 
 
 def test_cuda_device_raises_without_cuda():
@@ -238,8 +252,11 @@ def test_port_never_imports_jax(tmp_path):
         "from raytracing_gpu_tpu_torch.models.procedural import make_sphere_scene\n"
         "from raytracing_gpu_tpu_torch.__main__ import main\n"
         "import raytracing_gpu_tpu_torch.csrc.build, raytracing_gpu_tpu_torch.utils.image\n"
-        "img = p.render_scene(make_sphere_scene(4, 4, n_lat=6, n_lon=9), device='cpu')\n"
-        "assert img.shape == (4, 4, 3)\n"
+        "scene = make_sphere_scene(4, 4, n_lat=6, n_lon=9)\n"
+        "for kw in ({}, {'mode': 'gpu', 'any_hit_min_tris': 0, 'f2b_tiles': 1},\n"
+        "           {'backend': 'cuda_matmul'}):\n"
+        "    img = p.render_scene(scene, p.RenderConfig(**kw), device='cpu')\n"
+        "    assert img.shape == (4, 4, 3) and img.max() > 0.0, kw\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m.startswith('raytracing_gpu_tpu.') or m == 'raytracing_gpu_tpu')\n"
         "assert not bad, bad\n"
