@@ -27,15 +27,25 @@ of stdout are a JSON object with one entry per kernel, the card's nvidia-smi
 name and power limit, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-Timings are CUDA-event times (kernels) and host wall-clock times around
-synchronised frames (renders). A kernel's `bound_ms` is the least time the
+A kernel has two times. `ms` is the wrapper's: CUDA events around a loop of
+eager calls, so it holds the wrapper's host work and its launch gaps
+whenever those outlast the kernel. `device_ms` is the device's alone: the
+same calls captured into one CUDA graph and replayed between two events
+(for K4-K6 the graph also holds the small kernels of their worklist).
+`library_ms` and `library_device_ms` are the same two readings of the one
+PyTorch call that computes the same function (K3: `torch.index_select`).
+Frames are host wall-clock times around synchronised renders. K1 is also run
+twice on the same inputs (its cross-block combine must not depend on block
+order), on one full 65,536-ray chunk of the grid, and on rays that tie
+exactly across triangle tiles. A kernel's `bound_ms` is the least time the
 card could take for the same call: the larger of its floating-point
 operations over 67 TFLOP/s and its bytes (inputs read once, outputs written
 once) over 3.35 TB/s, the published peaks of an H100 SXM at 700 W; the work
 is counted for this run's data (pair tiles kept by the culling, triangle
 tiles the any-hit sweep walked before its early exit). `--profile` also
 traces one warm frame of each path with torch.profiler and prints kernel
-launches and the device's busy share. Imports torch, numpy and the port only.
+launches and the device's busy share, and K3's wrapper's host time by its
+parts. Imports torch, numpy and the port only.
 """
 
 from __future__ import annotations
@@ -102,6 +112,26 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, launches: int = 20, replays: int = 5) -> float:
+    """Device-only milliseconds per call: `launches` calls captured into one
+    CUDA graph, the graph replayed `replays` times between two events. No
+    host work of the wrapper is inside the window."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (launches * replays)
+
+
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
     """(least milliseconds the card could take, which side binds)."""
     t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -109,12 +139,13 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
 
 
 def sweep_bytes(Rp: int, Tp: int, in_per_ray: int, in_per_tri: int,
-                out_per_ray: int) -> int:
-    """Bytes a sweep must move: ray and triangle inputs, the worklist
-    (order and count), the per-ray outputs."""
+                out_per_ray: int, worklist: bool = True) -> int:
+    """Bytes a sweep must move: ray and triangle inputs, the per-ray outputs
+    and its tile list -- the worklist (order and count; K4-K6) or the
+    pair-tile mask itself (K1/K2)."""
     nR, nT = Rp // ck.TILE_R, Tp // ck.TILE_T
-    return (Rp * in_per_ray + Tp * in_per_tri + (nR * nT + nR) * 4
-            + Rp * out_per_ray)
+    tiles = nR * nT + (nR if worklist else 0)
+    return Rp * in_per_ray + Tp * in_per_tri + tiles * 4 + Rp * out_per_ray
 
 
 def cpu_primary_rays(scene, n: int):
@@ -162,35 +193,108 @@ def max_err(got, ref) -> float:
     return float((got[fin] - ref[fin]).abs().max())
 
 
-def check_sweep(name, rays, pack, iters, what):
-    """K1 or K2 against its plain version on one packed ray batch:
-    bit-equal distances (and equal slots for K1)."""
+SWEEPS = {"nearest_hit": (ck.nearest_hit, ck.nearest_hit_plain),
+          "nearest_dist": (ck.nearest_dist, ck.nearest_dist_plain)}
+
+
+def sweep_args(rays, pack):
     op, dp, _ = ck.pack_rays(*rays)
     mask = ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")
-    args = (op, dp, pack.v0, pack.e1, pack.e2, mask, EPS["mt_eps"],
+    return (op, dp, pack.v0, pack.e1, pack.e2, mask, EPS["mt_eps"],
             EPS["self_hit_eps"])
-    kern = {"nearest_hit": ck.nearest_hit, "nearest_dist": ck.nearest_dist}[name]
-    plain = {"nearest_hit": ck.nearest_hit_plain,
-             "nearest_dist": ck.nearest_dist_plain}[name]
-    got, ref = kern(*args), plain(*args)
-    torch.cuda.synchronize()
+
+
+def require_sweep_equal(name, got, ref, what):
+    """Bit-equal distances, and equal slots for K1."""
     if name == "nearest_hit":
-        (got, got_idx), (ref, ref_idx) = got, ref
-        n_idx = int((got_idx != ref_idx).sum())
+        n_idx = int((got[1] != ref[1]).sum())
         if n_idx:
-            raise AssertionError(f"{name}: {n_idx} winner slots differ")
-    require_bit_equal(name, got, ref)
-    Rp, Tp, kept = op.shape[1], pack.v0.shape[0], int(mask.sum())
+            raise AssertionError(f"{name} ({what}): {n_idx} winner slots differ")
+        got, ref = got[0], ref[0]
+    require_bit_equal(f"{name} ({what})", got, ref)
+    return got, ref
+
+
+def check_sweep(name, rays, pack, iters, what, plain_once=False):
+    """K1 or K2 against its plain version on one packed ray batch:
+    bit-equal distances (and equal slots for K1), and the kernel against
+    itself on a second run. `plain_once` times the plain version by its one
+    reference run (a full chunk against the grid takes seconds)."""
+    args = sweep_args(rays, pack)
+    kern, plain = SWEEPS[name]
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    ref = plain(*args)
+    stop.record()
+    got, again = kern(*args), kern(*args)
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    require_sweep_equal(name, again, got, what + ", second run against first")
+    got, ref = require_sweep_equal(name, got, ref, what)
+    mask = args[5]
+    Rp, Tp, kept = args[0].shape[1], pack.v0.shape[0], int(mask.sum())
     bms, by = bound(kept * PAIRS_PER_TILE * OPS_PER_PAIR,
-                    sweep_bytes(Rp, Tp, 24, 36, 8 if name == "nearest_hit" else 4))
+                    sweep_bytes(Rp, Tp, 24, 36, 8 if name == "nearest_hit" else 4,
+                                worklist=False))
     res = dict(max_abs_err=max_err(got, ref), ms=cuda_ms(lambda: kern(*args), iters),
-               plain_ms=cuda_ms(lambda: plain(*args), 2), bound_ms=bms,
-               bound_by=by, library_ms=None)
+               device_ms=device_ms(lambda: kern(*args)),
+               plain_ms=plain_ms if plain_once else cuda_ms(lambda: plain(*args), 2),
+               bound_ms=bms, bound_by=by, library_ms=None, library_device_ms=None)
     say("kernels", f"{name} ({what}): {Rp} rays x {Tp} triangles, {kept}/"
         f"{mask.numel()} pair tiles kept, {int(torch.isfinite(ref).sum())} hits: "
-        f"bit-equal; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+        f"bit-equal, and to its own second run; wrapper {res['ms']:.4f} ms, "
+        f"device only {res['device_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
         f"bound {bms:.5f} ms ({by})")
     return res
+
+
+def tie_case(dev, n_tiles: int = 64, n_rays: int = 1024):
+    """Rays and triangles with exact ties across triangle tiles: four
+    coincident copies of one quad (y = 0), each in another tile and at
+    another place in it, a fifth copy below them (y = -0.5) in the lowest
+    slots of all, every other slot degenerate; rays fall straight down on
+    and around the quads from several heights. Returns (sweep arguments, the two slots that must win)."""
+    Tp = n_tiles * ck.TILE_T
+    v0, e1, e2 = (torch.zeros((Tp, 3)) for _ in range(3))
+
+    def put_quad(slot, y):
+        v0[slot:slot + 2] = torch.tensor([-1.0, y, -1.0])
+        e1[slot], e2[slot] = torch.tensor([2.0, 0, 0]), torch.tensor([2.0, 0, 2.0])
+        e1[slot + 1], e2[slot + 1] = torch.tensor([2.0, 0, 2.0]), torch.tensor([0, 0, 2.0])
+
+    first = 3 * ck.TILE_T + 17
+    for slot in (first, 9 * ck.TILE_T + 200, 40 * ck.TILE_T, 63 * ck.TILE_T + 254):
+        put_quad(slot, 0.0)
+    put_quad(5, -0.5)
+    gen = torch.Generator().manual_seed(11)
+    xz = torch.rand((n_rays, 2), generator=gen) * 2.6 - 1.3
+    height = torch.rand((n_rays,), generator=gen) * 2.0 + 2.0
+    o = torch.stack([xz[:, 0], height, xz[:, 1]], 1)
+    d = torch.tensor([0.0, -1.0, 0.0]).expand(n_rays, 3)
+    op, dp, _ = ck.pack_rays(o.to(dev), d.to(dev))
+    mask = torch.ones((n_tiles, op.shape[1] // ck.TILE_R), dtype=torch.int32,
+                      device=dev)
+    return ((op, dp, v0.to(dev), e1.to(dev), e2.to(dev), mask, EPS["mt_eps"],
+             EPS["self_hit_eps"]), (first, first + 1))
+
+
+def check_ties(dev):
+    """K1 where several triangle tiles hold a hit at exactly the same
+    distance: the lowest slot wins, as in the plain version."""
+    args, winners = tie_case(dev)
+    got, ref = ck.nearest_hit(*args), ck.nearest_hit_plain(*args)
+    torch.cuda.synchronize()
+    require_sweep_equal("nearest_hit", got, ref, "ties across tiles")
+    hit = torch.isfinite(got[0])
+    n_hit = int(hit.sum())
+    if not 0 < n_hit < hit.numel():
+        raise AssertionError(f"ties: {n_hit} of {hit.numel()} rays hit; vacuous")
+    won = got[1][hit]
+    if not bool(((won == winners[0]) | (won == winners[1])).all()):
+        raise AssertionError("ties: a winner outside the lowest coincident quad: "
+                             f"{sorted(set(won.tolist()))}")
+    say("kernels", f"nearest_hit (exact ties across 4 of {args[5].shape[0]} triangle "
+        f"tiles): {n_hit} hits, all won by slots {winners}, equal to the plain version")
 
 
 def check_any_hit(rays, pack, iters, what):
@@ -220,13 +324,15 @@ def check_any_hit(rays, pack, iters, what):
     bms, by = bound(n_walked * PAIRS_PER_TILE * OPS_PER_PAIR,
                     sweep_bytes(Rp, Tp, 24, 36, 1) + (Rp // ck.TILE_R) * 4)
     res = dict(max_abs_err=0.0, ms=cuda_ms(lambda: ck.any_hit(*args), iters),
+               device_ms=device_ms(lambda: ck.any_hit(*args)),
                plain_ms=cuda_ms(lambda: ck.any_hit_plain(*args), 2), bound_ms=bms,
-               bound_by=by, library_ms=None,
+               bound_by=by, library_ms=None, library_device_ms=None,
                k2_ms=cuda_ms(lambda: ck.nearest_dist(*args), iters))
     say("kernels", f"any_hit ({what}): {Rp} rays ({int(live.sum())} live) x {Tp} "
         f"triangles, walked {n_walked} of {kept} kept pair tiles, {n_occ} occluded "
-        f"/ {n_free} not: equal; kernel {res['ms']:.4f} ms (nearest_dist on the "
-        f"same rays {res['k2_ms']:.4f} ms), plain {res['plain_ms']:.4f} ms, bound "
+        f"/ {n_free} not: equal; wrapper {res['ms']:.4f} ms (nearest_dist on the "
+        f"same rays {res['k2_ms']:.4f} ms), device only, worklist included, "
+        f"{res['device_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
         f"{bms:.5f} ms ({by})")
     return res
 
@@ -292,11 +398,13 @@ def check_matmul(name, rays, pack, iters, what):
     bms, by = bound(kept * PAIRS_PER_TILE * OPS_PER_PAIR_MATMUL,
                     sweep_bytes(Rp, Tp, 64, 256, 8 if want_idx else 4))
     res = dict(max_abs_err=max_err(got, ref), ms=cuda_ms(lambda: kern(*args), iters),
+               device_ms=device_ms(lambda: kern(*args)),
                plain_ms=cuda_ms(lambda: plain(*args), 2), bound_ms=bms,
-               bound_by=by, library_ms=None)
+               bound_by=by, library_ms=None, library_device_ms=None)
     say("kernels", f"{name} ({what}): {Rp} rays x {Tp} triangles, {kept}/"
         f"{mask.numel()} pair tiles kept, {int(torch.isfinite(ref).sum())} hits: "
-        f"bit-equal{note}; kernel {res['ms']:.4f} ms, plain "
+        f"bit-equal{note}; wrapper {res['ms']:.4f} ms, device only, worklist "
+        f"included, {res['device_ms']:.4f} ms, plain "
         f"{res['plain_ms']:.4f} ms, bound {bms:.5f} ms ({by})")
     return res
 
@@ -312,17 +420,42 @@ def check_fetch(pack, idx, iters):
     n, (Tp, C) = idx.shape[0], pack.table.shape
     long_idx = idx.long()
     bms, by = bound(0, min(Tp, n) * C * 4 + n * 4 + n * C * 4)
-    res = dict(max_abs_err=0.0,
-               ms=cuda_ms(lambda: ck.fetch_rows(pack.table, idx), iters),
+
+    def kern():
+        return ck.fetch_rows(pack.table, idx)
+
+    def library():
+        return torch.index_select(pack.table, 0, long_idx)
+
+    res = dict(max_abs_err=0.0, ms=cuda_ms(kern, iters), device_ms=device_ms(kern),
                plain_ms=cuda_ms(lambda: ck.fetch_rows_plain(pack.table, idx), iters),
-               bound_ms=bms, bound_by=by,
-               library_ms=cuda_ms(lambda: torch.index_select(pack.table, 0, long_idx),
-                                  iters))
-    say("kernels", f"fetch_rows: {n} rows of a {(Tp, C)} table "
-        f"({Tp * C * 4 / 2**20:.1f} MB): equal; kernel {res['ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.4f} ms, index_select {res['library_ms']:.4f} ms, "
-        f"bound {bms:.5f} ms ({by})")
+               bound_ms=bms, bound_by=by, library_ms=cuda_ms(library, iters),
+               library_device_ms=device_ms(library))
+    say("kernels", f"fetch_rows: {n} rows (stride {idx.stride(0)}) of a {(Tp, C)} "
+        f"table ({Tp * C * 4 / 2**20:.1f} MB): equal; wrapper {res['ms']:.4f} ms, "
+        f"device only {res['device_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+        f"index_select {res['library_ms']:.4f} ms, device only "
+        f"{res['library_device_ms']:.4f} ms, bound {bms:.5f} ms ({by})")
     return res
+
+
+def check_fetch_edges(dev):
+    """K3 on a 24-wide table, on slots outside the table (NaN rows) and on
+    a row count that is no multiple of its block."""
+    gen = torch.Generator().manual_seed(5)
+    table = torch.rand((512, ck.TABLE_WIDTH_NOMAT), generator=gen).to(dev)
+    idx = torch.randint(0, 512, (1001,), generator=gen, dtype=torch.int32).to(dev)
+    idx[::97] = 512
+    idx[5] = -1
+    got = ck.fetch_rows(table, idx)
+    torch.cuda.synchronize()
+    bad = (idx < 0) | (idx >= 512)
+    if not torch.equal(got[~bad], table[idx[~bad].long()]):
+        raise AssertionError("fetch_rows (24 wide): rows differ from table[idx]")
+    if not bool(torch.isnan(got[bad]).all()) or not bool(bad.any()):
+        raise AssertionError("fetch_rows: a slot outside the table must give NaN")
+    say("kernels", f"fetch_rows: 1001 rows of a (512, 24) table equal; "
+        f"{int(bad.sum())} slots outside the table gave NaN rows")
 
 
 def scene_pack(scene):
@@ -352,7 +485,8 @@ def check_kernels(dev):
     chunk of the sphere scene's CPU-mode primary rays and its 131,072 shadow
     rays, K4 on the shadow rays of one GPU-mode chunk. Every kernel is also
     held on 4,096 rays of the 96k-triangle grid (interval hierarchy, 12 MB
-    table)."""
+    table), K1 and K2 on one full chunk of it too (`grid_chunk` in the
+    result), K1 on exact ties and K3 on its edge cases."""
     chunk = RenderConfig().ray_chunk
     sph = make_sphere_scene(512, 512, **SPHERES).to(dev)
     sph_pack = scene_pack(sph)
@@ -381,10 +515,18 @@ def check_kernels(dev):
     results["any_hit"] = check_any_hit(shadows_of(sph_hi, gprim, sph_pack), sph_pack,
                                        20, "spheres, GPU-mode chunk's shadow rays")
 
+    check_ties(dev)
+    check_fetch_edges(dev)
     few = cpu_primary_rays(grid, 4096)
-    check_sweep("nearest_hit", few, grid_pack, 10, "grid")
-    check_sweep("nearest_dist", few, grid_pack, 10, "grid")
-    check_fetch(grid_pack, winners(few, grid_pack), 50)
+    results["grid_4096"] = {
+        "nearest_hit": check_sweep("nearest_hit", few, grid_pack, 10, "grid"),
+        "nearest_dist": check_sweep("nearest_dist", few, grid_pack, 10, "grid"),
+        "fetch_rows": check_fetch(grid_pack, winners(few, grid_pack), 50)}
+    full = cpu_primary_rays(grid, chunk)
+    results["grid_chunk"] = {
+        name: check_sweep(name, full, grid_pack, 10, "grid, one full chunk",
+                          plain_once=True)
+        for name in ("nearest_hit", "nearest_dist")}
     check_any_hit(few, grid_pack, 10, "grid primary rays")
     check_any_hit(shadows_of(grid, few, grid_pack), grid_pack, 10, "grid shadow rays")
     check_matmul("nearest_hit_matmul", few, grid_pack, 10, "grid")
@@ -477,7 +619,8 @@ def profile_frame(renderer, what):
     own = {}
     for k in kernels:
         tag = next((t for t in ("matmul_sweep_kernel", "any_hit_kernel",
-                                "fetch_rows_kernel", "sweep_kernel")
+                                "fetch_rows_kernel", "sweep_list_kernel",
+                                "sweep_kernel")
                     if t in k.name), None)
         if tag is not None:
             n, us = own.get(tag, (0, 0.0))
@@ -486,6 +629,40 @@ def profile_frame(renderer, what):
         f"device kernels and copies, device busy {busy_us / 1e3:.1f} ms = "
         f"{busy_us / 10 / wall_ms:.1f}% of the frame; own kernels "
         + ", ".join(f"{t} {us / 1e3:.2f} ms in {n}" for t, (n, us) in sorted(own.items())))
+
+
+def host_us(fn, n: int = 2000) -> float:
+    """Host microseconds per call of `fn` over n unsynchronised calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def profile_fetch_wrapper(dev):
+    """Where K3's wrapper spends its host time at 4,096 rows, beside the
+    library call's and one in-place torch op's."""
+    gen = torch.Generator().manual_seed(3)
+    table = torch.rand((96000, ck.TABLE_WIDTH_MAT), generator=gen).to(dev)
+    idx = torch.randint(0, 96000, (4096,), generator=gen, dtype=torch.int32).to(dev)
+    long_idx, out = idx.long(), torch.empty((4096, ck.TABLE_WIDTH_MAT), device=dev)
+    launch = ck._lib().rgt_fetch_rows
+    args = (table.data_ptr(), 96000, ck.TABLE_WIDTH_MAT, idx.data_ptr(), 1, 4096,
+            out.data_ptr(), ck._stream(dev))
+    parts = {"fetch_rows wrapper": lambda: ck.fetch_rows(table, idx),
+             "index_select": lambda: torch.index_select(table, 0, long_idx),
+             "torch.empty of the result": lambda: torch.empty_like(out),
+             "stream handle": lambda: ck._stream(dev),
+             "torch.cuda.current_stream().cuda_stream":
+                 lambda: torch.cuda.current_stream(dev).cuda_stream,
+             "bare ctypes launch": lambda: launch(*args),
+             "out.add_(1.0)": lambda: out.add_(1.0)}
+    say("profile", "host microseconds per call, 4,096 rows of a (96000, 32) table: "
+        + ", ".join(f"{k} {host_us(fn):.2f}" for k, fn in parts.items()))
 
 
 def main(argv) -> int:
@@ -511,6 +688,8 @@ def main(argv) -> int:
             say("build", line.strip())
 
     results = check_kernels(dev)
+    if want_profile:
+        profile_fetch_wrapper(dev)
     cfg = RenderConfig(backend="cuda")
     spheres512 = make_sphere_scene(512, 512, **SPHERES)
     cpu_rays = 512 * 512 * 4
@@ -611,8 +790,13 @@ def main(argv) -> int:
     for name, p in path_of.items():
         entry = {"name": name, "route": "cuda", "source": SOURCE,
                  "replaces": REPLACES[name], "launches": launches[p][name]}
-        entry.update({k: results[name][k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "device_ms", "library_device_ms")
+        entry.update({k: results[name][k] for k in keys})
+        other = {shape: {k: results[shape][name][k] for k in keys}
+                 for shape in ("grid_4096", "grid_chunk") if name in results[shape]}
+        if other:
+            entry["other_shapes"] = other
         entry["path"] = p
         entry["launches_by_path"] = {q: c[name] for q, c in launches.items()}
         if name == "fetch_rows":

@@ -1,5 +1,5 @@
-"""Kernel path of the intersection: packing, tile culling, worklists and the
-six hand-written CUDA kernels, each beside its plain PyTorch version.
+"""Kernel path of the intersection: packing, tile culling and the six
+hand-written CUDA kernels, each beside its plain PyTorch version.
 
 The counterpart of the JAX package's `ops/pallas_intersect.py`:
 
@@ -14,7 +14,10 @@ The counterpart of the JAX package's `ops/pallas_intersect.py`:
   `nearest_hit_matmul` (K5) and `nearest_dist_matmul` (K6) launch the
   kernels of `csrc/intersect.cu` on CUDA tensors. On CPU tensors they run
   their plain versions, so every step around the kernels runs in the CPU
-  tests; on a CUDA tensor a wrapper launches its kernel or raises;
+  tests; on a CUDA tensor a wrapper launches its kernel or raises. K1/K2
+  read the pair-tile mask themselves, spread the kept pair tiles over the
+  whole card and combine the pieces by the minimum of `sweep_key`; K4-K6
+  walk an ordered `tile_worklist` per ray tile;
 - `nearest_hit_front_to_back` is the two-round composite over K1 (nearest
   triangle tiles first, then only those a hit so far cannot rule out);
 - `ray_features` / `pack_tri_features` pack rays and triangles for the
@@ -389,6 +392,21 @@ def first_argmin(dist):
     return dmin, idx.to(torch.int32)
 
 
+def sweep_key(dist, slot):
+    """(dist float32 > 0 or +inf, slot int32 >= 0) -> int64 key
+    (bits(dist) << 32) | slot. The bits of a positive float order as an
+    integer, so the minimum key is (minimum distance, lowest slot among its
+    ties): the combine K1 applies across blocks with one atomicMin per ray.
+    A ray that never hit keeps `sweep_key(+inf, 0)`."""
+    return (dist.view(torch.int32).to(torch.int64) << 32) | slot.to(torch.int64)
+
+
+def split_key(key):
+    """int64 key of `sweep_key` -> (dist float32, slot int32)."""
+    return ((key >> 32).to(torch.int32).view(torch.float32),
+            (key & 0xFFFFFFFF).to(torch.int32))
+
+
 # pairs per block of the plain sweeps: bounds their (rays x triangles) memory
 _PLAIN_PAIRS = 1 << 24
 
@@ -575,11 +593,12 @@ def _lib():
     from raytracing_gpu_tpu_torch.csrc.build import library_path
 
     lib = ctypes.CDLL(str(library_path()))
-    sweep = [_P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _F, _P]
-    lib.rgt_nearest_hit.argtypes = sweep + [_P, _P]
-    lib.rgt_nearest_dist.argtypes = sweep + [_P]
-    lib.rgt_any_hit.argtypes = sweep + [_P, _P]
-    lib.rgt_fetch_rows.argtypes = [_P, _I, _I, _P, _I, _P, _P]
+    rays_tris = [_P, _P, _I, _P, _P, _P]
+    # K1/K2 read the pair-tile mask; K4 an ordered worklist
+    lib.rgt_nearest_hit.argtypes = rays_tris + [_P, _I, _F, _F, _P, _P, _P]
+    lib.rgt_nearest_dist.argtypes = rays_tris + [_P, _I, _F, _F, _P, _P, _P]
+    lib.rgt_any_hit.argtypes = rays_tris + [_P, _P, _I, _F, _F, _P, _P, _P]
+    lib.rgt_fetch_rows.argtypes = [_P, _I, _I, _P, _I, _I, _P, _P]
     matmul = [_P, _I, _P, _I, _P, _P, _I, _F, _F, _P]
     lib.rgt_nearest_hit_matmul.argtypes = matmul + [_P, _P]
     lib.rgt_nearest_dist_matmul.argtypes = matmul + [_P]
@@ -601,10 +620,10 @@ def _on_cpu(*tensors) -> bool:
     """True when every tensor is on the CPU (take the plain version), False
     when every one is on one CUDA device (launch the kernel); raises
     otherwise."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on several devices: {dev} and {t.device}")
     if dev.type == "cpu":
         return True
     if dev.type != "cuda":
@@ -621,15 +640,26 @@ def _require(t, name, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _stream(dev) -> int:
+    """Handle of the current CUDA stream on `dev`, asked anew at every launch
+    (a graph capture or a stream context changes it). torch's raw getter
+    skips building a `torch.cuda.Stream` object, which costs several
+    microseconds per call; without it the public call serves."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(dev).cuda_stream
+    return raw(torch.cuda.current_device() if dev.index is None else dev.index)
+
+
 def _check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what} launch failed: "
                            f"{_lib().rgt_error_string(code).decode()} ({code})")
 
 
-def _ray_worklist(tile_mask, Rp: int, Tp: int):
-    """Checked (order, count) of a (Tp/256, Rp/256) tile mask: per ray tile,
-    its surviving triangle tiles in ascending order."""
+def _tile_counts(tile_mask, Rp: int, Tp: int) -> tuple[int, int]:
+    """(ray tiles, triangle tiles) of a sweep, after checking the padding
+    and the (Tp/256, Rp/256) shape of its pair-tile mask."""
     if Rp % TILE_R or Tp % TILE_T:
         raise ValueError(f"rays ({Rp}) and triangles ({Tp}) must be padded "
                          f"to multiples of {TILE_R}/{TILE_T}")
@@ -637,38 +667,80 @@ def _ray_worklist(tile_mask, Rp: int, Tp: int):
     if tuple(tile_mask.shape) != (nT, nR):
         raise ValueError(f"tile_mask: expected shape {(nT, nR)}, got "
                          f"{tuple(tile_mask.shape)}")
+    return nR, nT
+
+
+def _ray_worklist(tile_mask, Rp: int, Tp: int):
+    """Checked (order, count) of a (Tp/256, Rp/256) tile mask: per ray tile,
+    its surviving triangle tiles in ascending order."""
+    _tile_counts(tile_mask, Rp, Tp)
     return tuple(t.contiguous() for t in tile_worklist(tile_mask.t()))
 
 
-def _launch_sweep(name: str, op, dp, v0, e1, e2, tile_mask, mt_eps,
-                  self_hit_eps):
-    """Launch K1 ("nearest_hit"), K2 ("nearest_dist") or K4 ("any_hit"):
-    (first output, second output or None)."""
+def _require_rays_tris(op, dp, v0, e1, e2) -> tuple[int, int]:
     Rp, Tp = op.shape[1], v0.shape[0]
     for what, t, shape in (("op", op, (3, Rp)), ("dp", dp, (3, Rp)),
                            ("v0", v0, (Tp, 3)), ("e1", e1, (Tp, 3)),
                            ("e2", e2, (Tp, 3))):
         _require(t, what, torch.float32, shape)
-    order, count = _ray_worklist(tile_mask, Rp, Tp)
+    return Rp, Tp
+
+
+def _require_key_order(self_hit_eps) -> None:
+    """K1/K2 combine their blocks by the integer order of the distances'
+    bits, which holds for positive floats only: every accepted distance
+    exceeds self_hit_eps, so that must not be negative."""
+    if self_hit_eps < 0:
+        raise ValueError(f"self_hit_eps must be >= 0, got {self_hit_eps}")
+
+
+def key_halves(key):
+    """(Rp,) int64 keys of `sweep_key` -> (dist float32, slot int32) as views
+    of the keys' two 32-bit halves (little endian: slot first). No kernel
+    runs, and both views have stride 2."""
+    halves = key.view(torch.int32).view(-1, 2)
+    return halves[:, 1].view(torch.float32), halves[:, 0]
+
+
+def _launch_sweep(name: str, op, dp, v0, e1, e2, tile_mask, mt_eps,
+                  self_hit_eps):
+    """Launch K1 ("nearest_hit") or K2 ("nearest_dist") on the pair-tile
+    mask itself: (dist, idx or None). K1 writes one int64 key per ray
+    (`sweep_key`) and returns its `key_halves`."""
+    Rp, Tp = _require_rays_tris(op, dp, v0, e1, e2)
+    nR, nT = _tile_counts(tile_mask, Rp, Tp)
+    _require(tile_mask, "tile_mask", torch.int32, (nT, nR))
+    want_idx = name == "nearest_hit"
     dev = op.device
-    if name == "any_hit":
-        out = torch.empty((Rp,), dtype=torch.bool, device=dev)
-        extra = torch.empty((Rp // TILE_R,), dtype=torch.int32, device=dev)
-    else:
-        out = torch.empty((Rp,), dtype=torch.float32, device=dev)
-        extra = (torch.empty((Rp,), dtype=torch.int32, device=dev)
-                 if name == "nearest_hit" else None)
+    out = torch.empty((Rp,), dtype=torch.int64 if want_idx else torch.float32,
+                      device=dev)
+    if Rp:
+        # the kernel's queue of kept pair tiles, freed when this call returns
+        work = torch.empty((2 + nT * nR,), dtype=torch.int32, device=dev)
+        _check(getattr(_lib(), "rgt_" + name)(
+            op.data_ptr(), dp.data_ptr(), Rp, v0.data_ptr(), e1.data_ptr(),
+            e2.data_ptr(), tile_mask.data_ptr(), nT, f32(mt_eps),
+            f32(self_hit_eps), out.data_ptr(), work.data_ptr(),
+            _stream(dev)), name)
+        LAUNCHES[name] += 1
+    return key_halves(out) if want_idx else (out, None)
+
+
+def _launch_any_hit(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
+    """Launch K4: (occluded (Rp,) bool, walked (Rp/256,) int32)."""
+    Rp, Tp = _require_rays_tris(op, dp, v0, e1, e2)
+    order, count = _ray_worklist(tile_mask, Rp, Tp)
+    occ = torch.empty((Rp,), dtype=torch.bool, device=op.device)
+    walked = torch.empty((Rp // TILE_R,), dtype=torch.int32, device=op.device)
     if Rp == 0:
-        return out, extra
-    fn = getattr(_lib(), "rgt_" + name)
-    args = [op.data_ptr(), dp.data_ptr(), Rp, v0.data_ptr(), e1.data_ptr(),
-            e2.data_ptr(), order.data_ptr(), count.data_ptr(), Tp // TILE_T,
-            f32(mt_eps), f32(self_hit_eps), out.data_ptr()]
-    if extra is not None:
-        args.append(extra.data_ptr())
-    _check(fn(*args, torch.cuda.current_stream(dev).cuda_stream), name)
-    LAUNCHES[name] += 1
-    return out, extra
+        return occ, walked
+    _check(_lib().rgt_any_hit(
+        op.data_ptr(), dp.data_ptr(), Rp, v0.data_ptr(), e1.data_ptr(),
+        e2.data_ptr(), order.data_ptr(), count.data_ptr(), Tp // TILE_T,
+        f32(mt_eps), f32(self_hit_eps), occ.data_ptr(), walked.data_ptr(),
+        _stream(op.device)), "any_hit")
+    LAUNCHES["any_hit"] += 1
+    return occ, walked
 
 
 def _launch_matmul_sweep(name: str, rayf, g, tile_mask, mt_eps, self_hit_eps):
@@ -689,7 +761,7 @@ def _launch_matmul_sweep(name: str, rayf, g, tile_mask, mt_eps, self_hit_eps):
     if idx is not None:
         args.append(idx.data_ptr())
     _check(getattr(_lib(), "rgt_" + name)(
-        *args, torch.cuda.current_stream(dev).cuda_stream), name)
+        *args, _stream(dev)), name)
     LAUNCHES[name] += 1
     return dist, idx
 
@@ -700,7 +772,11 @@ def nearest_hit(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
     op/dp (3,Rp) float32 with Rp % 256 == 0; v0/e1/e2 (Tp,3) float32 with
     Tp % 256 == 0 (invalid triangles degenerate); tile_mask (Tp/256, Rp/256).
     Returns (dist (Rp,) +inf on a miss, idx (Rp,) int32 clustered slot — the
-    lowest on a tie, 0 on a miss). Replaces nearest_hit_pallas."""
+    lowest on a tie, 0 on a miss). On the card both are views with stride 2
+    (`key_halves` of the kernel's int64 keys): index, slice and combine them
+    freely, `fetch_rows` reads idx in place, but `.view` to another shape or
+    a raw pointer needs `.contiguous()` first. Replaces nearest_hit_pallas."""
+    _require_key_order(self_hit_eps)
     if _on_cpu(op, dp, v0, e1, e2, tile_mask):
         return nearest_hit_plain(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps)
     return _launch_sweep("nearest_hit", op, dp, v0, e1, e2, tile_mask, mt_eps,
@@ -711,6 +787,7 @@ def nearest_dist(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
     """K2: minimum accepted t*|d| per ray ((Rp,), +inf on a miss) — the
     shadow path, which reads only whether it is finite. Replaces
     nearest_dist_pallas."""
+    _require_key_order(self_hit_eps)
     if _on_cpu(op, dp, v0, e1, e2, tile_mask):
         return nearest_dist_plain(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps)
     return _launch_sweep("nearest_dist", op, dp, v0, e1, e2, tile_mask, mt_eps,
@@ -724,8 +801,7 @@ def any_hit_walked(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
     if _on_cpu(op, dp, v0, e1, e2, tile_mask):
         raise ValueError("any_hit_walked reports the kernel's work: CUDA "
                          "tensors only")
-    return _launch_sweep("any_hit", op, dp, v0, e1, e2, tile_mask, mt_eps,
-                         self_hit_eps)
+    return _launch_any_hit(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps)
 
 
 def any_hit(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
@@ -787,22 +863,32 @@ def nearest_hit_front_to_back(op, dp, pack: KernelPack, tile_mask, mt_eps,
 
 
 def fetch_rows(table, idx):
-    """K3: rows = table[idx] for a (Tp, C) float32 table and (n,) int32
-    slots. Replaces the fetch kernels of _fetch_rows_impl."""
-    if _on_cpu(table, idx):
-        return fetch_rows_plain(table, idx)
+    """K3: rows = table[idx] for a (Tp, 24|32) float32 winner table and (n,)
+    int32 slots (any stride); a slot outside the table gives a NaN row on
+    the card. Replaces the fetch kernels of _fetch_rows_impl."""
     if table.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"fetch_rows: table must be 2-D and idx 1-D, got "
                          f"{tuple(table.shape)} and {tuple(idx.shape)}")
-    _require(table, "table", torch.float32, table.shape)
-    _require(idx, "idx", torch.int32, idx.shape)
     Tp, C = table.shape
+    if C not in (TABLE_WIDTH_NOMAT, TABLE_WIDTH_MAT):
+        raise ValueError(f"fetch_rows: a winner row is {TABLE_WIDTH_NOMAT} or "
+                         f"{TABLE_WIDTH_MAT} floats wide, got {C}")
+    if _on_cpu(table, idx):
+        return fetch_rows_plain(table, idx)
     n = idx.shape[0]
+    if table.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise TypeError(f"fetch_rows: expected a float32 table and int32 "
+                        f"slots, got {table.dtype} and {idx.dtype}")
+    # the kernel moves 16-byte pieces with 32-bit offsets
+    if (not table.is_contiguous() or table.data_ptr() % 16
+            or max(Tp, n) * C >= 1 << 31):
+        raise ValueError("fetch_rows: the table must be contiguous, 16-byte "
+                         "aligned and, like the result, under 2**31 elements")
     out = torch.empty((n, C), dtype=torch.float32, device=table.device)
-    if n == 0:
-        return out
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    _check(_lib().rgt_fetch_rows(table.data_ptr(), Tp, C, idx.data_ptr(), n,
-                                 out.data_ptr(), stream), "fetch_rows")
-    LAUNCHES["fetch_rows"] += 1
+    if n:
+        _check(_lib().rgt_fetch_rows(
+            table.data_ptr(), Tp, C, idx.data_ptr(), idx.stride(0), n,
+            out.data_ptr(),
+            _stream(table.device)), "fetch_rows")
+        LAUNCHES["fetch_rows"] += 1
     return out

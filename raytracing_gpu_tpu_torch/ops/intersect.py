@@ -99,7 +99,10 @@ def _dir_length(dirs):
 def _kernel_sweep(origins, dirs, pack, mt_eps, self_hit_eps, backend,
                   partitioning, want_idx: bool, f2b_tiles: int = 0):
     """Pack and cull a ray batch and sweep it on a kernel backend: (dist
-    (Rp,) +inf on a miss, idx (Rp,) int32 clustered slots or None)."""
+    (Rp,) +inf on a miss, idx (Rp,) int32 clustered slots or None). K1's
+    pair on the card has stride 2 (`ck.key_halves`), the matmul backend's is
+    contiguous: callers slice, test and pass them to `ck.fetch_rows`, which
+    hold for either."""
     op, dp, _ = ck.pack_rays(origins, dirs)
     if backend == "cuda_matmul":
         # Möller–Trumbore is translation invariant, and the expanded triple

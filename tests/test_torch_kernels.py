@@ -283,10 +283,19 @@ def test_cuda_kernels_match_plain(cuda_device):
     pd, pi = ck.nearest_hit_plain(*args)
     assert torch.equal(ki, pi)
     assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+    kd2, ki2 = ck.nearest_hit(*args)  # the cross-block combine has no order
+    assert torch.equal(ki2, ki) and torch.equal(kd2.view(torch.int32),
+                                                kd.view(torch.int32))
     assert torch.equal(ck.nearest_dist(*args).view(torch.int32),
                        ck.nearest_dist_plain(*args).view(torch.int32))
+    assert not ki.is_contiguous()  # the slot half of K1's keys, read in place
     assert torch.equal(ck.fetch_rows(pack.table, ki[:R]),
                        ck.fetch_rows_plain(pack.table, ki[:R]))
+    g24 = ck.pack_geometry(g.vertices, g.valid, g.normals, g.tri_obj).table
+    assert g24.shape[1] == ck.TABLE_WIDTH_NOMAT
+    assert torch.equal(ck.fetch_rows(g24, ki[:R]), ck.fetch_rows_plain(g24, ki[:R]))
+    outside = torch.tensor([-1, g24.shape[0]], dtype=torch.int32, device=cuda_device)
+    assert bool(torch.isnan(ck.fetch_rows(g24, outside)).all())
     assert torch.equal(ck.any_hit(*args), ck.any_hit_plain(*args))
     c = ck.live_centroid(op.t()[:R])
     rayf = ck.ray_features(op - c[:, None], dp)
@@ -298,4 +307,5 @@ def test_cuda_kernels_match_plain(cuda_device):
     assert torch.equal(md.view(torch.int32), qd.view(torch.int32))
     assert torch.equal(ck.nearest_dist_matmul(*margs).view(torch.int32),
                        ck.nearest_dist_matmul_plain(*margs).view(torch.int32))
-    assert {k: ck.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 1)
+    assert {k: ck.LAUNCHES[k] - before[k] for k in before} == dict(
+        dict.fromkeys(before, 1), nearest_hit=2, fetch_rows=3)
