@@ -30,22 +30,25 @@ name and power limit, and
 A kernel has two times. `ms` is the wrapper's: CUDA events around a loop of
 eager calls, so it holds the wrapper's host work and its launch gaps
 whenever those outlast the kernel. `device_ms` is the device's alone: the
-same calls captured into one CUDA graph and replayed between two events
-(for K4-K6 the graph also holds the small kernels of their worklist).
+same calls captured into one CUDA graph and replayed between two events.
 `library_ms` and `library_device_ms` are the same two readings of the one
 PyTorch call that computes the same function (K3: `torch.index_select`).
-Frames are host wall-clock times around synchronised renders. K1 is also run
-twice on the same inputs (its cross-block combine must not depend on block
-order), on one full 65,536-ray chunk of the grid, and on rays that tie
-exactly across triangle tiles. A kernel's `bound_ms` is the least time the
+Frames are host wall-clock times around synchronised renders. Every sweep
+(K1, K2, K4, K5, K6) is also run twice on the same inputs (its combine across
+blocks must not depend on their order) and on one full 65,536-ray chunk of
+the grid, K1 on rays that tie exactly across triangle tiles too. K4's count
+of scanned units depends on how its blocks overlap in time, so it is held to
+inequalities only: never more than 4 per kept pair tile, and fewer than that
+on ray tiles that saturate. A kernel's `bound_ms` is the least time the
 card could take for the same call: the larger of its floating-point
 operations over 67 TFLOP/s and its bytes (inputs read once, outputs written
 once) over 3.35 TB/s, the published peaks of an H100 SXM at 700 W; the work
-is counted for this run's data (pair tiles kept by the culling, triangle
-tiles the any-hit sweep walked before its early exit). `--profile` also
-traces one warm frame of each path with torch.profiler and prints kernel
-launches and the device's busy share, and K3's wrapper's host time by its
-parts. Imports torch, numpy and the port only.
+is counted for this run's data (pair tiles kept by the culling, the
+64-triangle units the any-hit sweep scanned before its early exit).
+`--profile` also traces one warm frame of each path with torch.profiler and
+prints kernel launches (the three paths' side by side at the end) and the
+device's busy share, and K3's wrapper's host time by its parts at 4,096 and
+65,536 rows. Imports torch, numpy and the port only.
 """
 
 from __future__ import annotations
@@ -112,6 +115,16 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def timed_once(fn):
+    """(result, CUDA-event milliseconds) of one call of `fn`."""
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
 def device_ms(fn, launches: int = 20, replays: int = 5) -> float:
     """Device-only milliseconds per call: `launches` calls captured into one
     CUDA graph, the graph replayed `replays` times between two events. No
@@ -138,14 +151,11 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def sweep_bytes(Rp: int, Tp: int, in_per_ray: int, in_per_tri: int,
-                out_per_ray: int, worklist: bool = True) -> int:
-    """Bytes a sweep must move: ray and triangle inputs, the per-ray outputs
-    and its tile list -- the worklist (order and count; K4-K6) or the
-    pair-tile mask itself (K1/K2)."""
+def sweep_bytes(Rp: int, Tp: int, out_per_ray: int) -> int:
+    """Bytes a sweep must move: packed rays (24 bytes each), triangles (36),
+    the pair-tile mask and the per-ray outputs."""
     nR, nT = Rp // ck.TILE_R, Tp // ck.TILE_T
-    tiles = nR * nT + (nR if worklist else 0)
-    return Rp * in_per_ray + Tp * in_per_tri + tiles * 4 + Rp * out_per_ray
+    return Rp * 24 + Tp * 36 + nR * nT * 4 + Rp * out_per_ray
 
 
 def cpu_primary_rays(scene, n: int):
@@ -222,20 +232,15 @@ def check_sweep(name, rays, pack, iters, what, plain_once=False):
     reference run (a full chunk against the grid takes seconds)."""
     args = sweep_args(rays, pack)
     kern, plain = SWEEPS[name]
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    ref = plain(*args)
-    stop.record()
+    ref, plain_ms = timed_once(lambda: plain(*args))
     got, again = kern(*args), kern(*args)
     torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(stop)
     require_sweep_equal(name, again, got, what + ", second run against first")
     got, ref = require_sweep_equal(name, got, ref, what)
     mask = args[5]
     Rp, Tp, kept = args[0].shape[1], pack.v0.shape[0], int(mask.sum())
     bms, by = bound(kept * PAIRS_PER_TILE * OPS_PER_PAIR,
-                    sweep_bytes(Rp, Tp, 24, 36, 8 if name == "nearest_hit" else 4,
-                                worklist=False))
+                    sweep_bytes(Rp, Tp, 8 if name == "nearest_hit" else 4))
     res = dict(max_abs_err=max_err(got, ref), ms=cuda_ms(lambda: kern(*args), iters),
                device_ms=device_ms(lambda: kern(*args)),
                plain_ms=plain_ms if plain_once else cuda_ms(lambda: plain(*args), 2),
@@ -297,55 +302,74 @@ def check_ties(dev):
         f"tiles): {n_hit} hits, all won by slots {winners}, equal to the plain version")
 
 
-def check_any_hit(rays, pack, iters, what):
-    """K4 against its plain version and against `nearest_dist < inf`:
-    equal exactly. Also times K2 on the same inputs (`k2_ms`)."""
+UNITS_PER_TILE = 4  # a kept pair tile is scanned as four 64-triangle units
+PAIRS_PER_UNIT = PAIRS_PER_TILE // UNITS_PER_TILE
+
+
+def check_any_hit(rays, pack, iters, what, plain_once=False):
+    """K4 against its plain version and against `nearest_dist < inf`, and
+    against itself on a second run: equal exactly. Some ray tile must hold
+    occluded and unoccluded live rays together (the flag flip and the live
+    count are per ray, within a tile). Also times K2 on the same inputs
+    (`k2_ms`, `k2_device_ms`)."""
     op, dp, R = ck.pack_rays(*rays)
     mask = ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")
     args = (op, dp, pack.v0, pack.e1, pack.e2, mask, EPS["mt_eps"],
             EPS["self_hit_eps"])
     got, walked = ck.any_hit_walked(*args)
-    ref = ck.any_hit_plain(*args)
+    again = ck.any_hit(*args)
+    ref, plain_ms = timed_once(lambda: ck.any_hit_plain(*args))
     via_dist = torch.isfinite(ck.nearest_dist(*args)) & ck.live_rays(op)
     torch.cuda.synchronize()
-    for other, label in ((ref, "its plain version"), (via_dist, "nearest_dist < inf")):
+    for other, label in ((ref, "its plain version"), (via_dist, "nearest_dist < inf"),
+                         (again, "its own second run")):
         n = int((got != other).sum())
         if n:
             raise AssertionError(f"any_hit ({what}): {n} rays differ from {label}")
     live = ck.live_rays(op)
-    n_occ, n_free = int((got & live).sum()), int((~got & live).sum())
-    if not n_occ or not n_free:
+    occ_t = (got & live).reshape(-1, ck.TILE_R).any(1)
+    free_t = (~got & live).reshape(-1, ck.TILE_R).any(1)
+    n_occ, n_free, n_mixed = int((got & live).sum()), int((~got & live).sum()), \
+        int((occ_t & free_t).sum())
+    if not n_mixed:
         raise AssertionError(f"any_hit ({what}): {n_occ} occluded and {n_free} "
-                             "unoccluded live rays; the check is vacuous")
+                             "unoccluded live rays, in no ray tile together; "
+                             "the check is vacuous")
     Rp, Tp = op.shape[1], pack.v0.shape[0]
-    kept, n_walked = int(mask.sum()), int(walked.sum())
-    if n_walked > kept:
-        raise AssertionError(f"any_hit walked {n_walked} tiles of {kept} kept")
-    bms, by = bound(n_walked * PAIRS_PER_TILE * OPS_PER_PAIR,
-                    sweep_bytes(Rp, Tp, 24, 36, 1) + (Rp // ck.TILE_R) * 4)
+    kept = mask.sum(0) * UNITS_PER_TILE
+    if bool((walked > kept).any()) or bool((walked < 0).any()):
+        raise AssertionError(f"any_hit ({what}): scanned {walked.tolist()} units "
+                             f"of {kept.tolist()} kept")
+    kept, n_walked = int(kept.sum()), int(walked.sum())
+    bms, by = bound(n_walked * PAIRS_PER_UNIT * OPS_PER_PAIR, sweep_bytes(Rp, Tp, 1))
     res = dict(max_abs_err=0.0, ms=cuda_ms(lambda: ck.any_hit(*args), iters),
                device_ms=device_ms(lambda: ck.any_hit(*args)),
-               plain_ms=cuda_ms(lambda: ck.any_hit_plain(*args), 2), bound_ms=bms,
-               bound_by=by, library_ms=None, library_device_ms=None,
-               k2_ms=cuda_ms(lambda: ck.nearest_dist(*args), iters))
+               plain_ms=plain_ms if plain_once
+               else cuda_ms(lambda: ck.any_hit_plain(*args), 2),
+               bound_ms=bms, bound_by=by, library_ms=None, library_device_ms=None,
+               k2_ms=cuda_ms(lambda: ck.nearest_dist(*args), iters),
+               k2_device_ms=device_ms(lambda: ck.nearest_dist(*args)))
     say("kernels", f"any_hit ({what}): {Rp} rays ({int(live.sum())} live) x {Tp} "
-        f"triangles, walked {n_walked} of {kept} kept pair tiles, {n_occ} occluded "
-        f"/ {n_free} not: equal; wrapper {res['ms']:.4f} ms (nearest_dist on the "
-        f"same rays {res['k2_ms']:.4f} ms), device only, worklist included, "
-        f"{res['device_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
-        f"{bms:.5f} ms ({by})")
+        f"triangles, scanned {n_walked} of {kept} kept units, {n_occ} occluded "
+        f"/ {n_free} not, {n_mixed} ray tiles hold both: equal, and to its own "
+        f"second run; wrapper {res['ms']:.4f} ms, device only "
+        f"{res['device_ms']:.4f} ms (nearest_dist on the same rays "
+        f"{res['k2_ms']:.4f} / {res['k2_device_ms']:.4f} ms), plain "
+        f"{res['plain_ms']:.4f} ms, bound {bms:.5f} ms ({by})")
     return res
 
 
-def check_any_hit_early_exit(pack, dev):
-    """K4 on ray tiles that saturate: 1,024 rays straight down onto the
-    sphere scene's ground, every pair tile kept. Every ray is occluded, the
-    answer equals the plain version's, and each ray tile must stop walking
-    before its worklist ends."""
+def check_any_hit_early_exit(pack, dev, n_rays: int):
+    """K4 on ray tiles that saturate: one chunk of rays straight down onto
+    the sphere scene's ground, every pair tile kept. Every ray is occluded,
+    the answer equals the plain version's, and units must have been dropped:
+    fewer scanned than kept. (The chunk gives the queue several times more
+    units than blocks fit on the card; a batch whose units are all drawn at
+    once has nothing left to drop.)"""
     gen = torch.Generator().manual_seed(7)
-    xz = torch.rand((1024, 2), generator=gen) * 2.0 - 1.0
-    o = torch.stack([xz[:, 0], torch.full((1024,), 5.0), xz[:, 1]], 1).to(dev)
-    d = torch.tensor([0.0, -1.0, 0.0], device=dev).expand(1024, 3)
+    xz = torch.rand((n_rays, 2), generator=gen) * 2.0 - 1.0
+    o = torch.stack([xz[:, 0], torch.full((n_rays,), 5.0), xz[:, 1]], 1).to(dev)
+    d = torch.tensor([0.0, -1.0, 0.0], device=dev).expand(n_rays, 3)
     op, dp, _ = ck.pack_rays(o, d)
     mask = ck.tile_cull_mask_hierarchical(op, dp, pack, "none")
     args = (op, dp, pack.v0, pack.e1, pack.e2, mask, EPS["mt_eps"],
@@ -354,38 +378,52 @@ def check_any_hit_early_exit(pack, dev):
     torch.cuda.synchronize()
     if not torch.equal(got, ck.any_hit_plain(*args)) or not bool(got.all()):
         raise AssertionError("any_hit (saturated tiles): wrong answer")
-    kept = mask.sum(0)
-    if not bool((walked < kept).all()):
-        raise AssertionError("any_hit (saturated tiles): no early exit, walked "
-                             f"{walked.tolist()} of {kept.tolist()}")
+    kept = mask.sum(0) * UNITS_PER_TILE
+    if bool((walked > kept).any()) or not bool((walked > 0).all()):
+        raise AssertionError("any_hit (saturated tiles): scanned "
+                             f"{walked.tolist()} of {kept.tolist()} units")
+    n_walked, n_kept = int(walked.sum()), int(kept.sum())
+    if not n_walked < n_kept:
+        raise AssertionError("any_hit (saturated tiles): no early exit, scanned "
+                             f"{n_walked} of {n_kept} units")
     say("kernels", f"any_hit (saturated tiles): all {got.numel()} rays occluded, "
-        f"equal; walked {walked.tolist()} of {kept.tolist()} triangle tiles")
+        f"equal; scanned {n_walked} of {n_kept} units, {int((walked < kept).sum())} "
+        f"of {kept.numel()} ray tiles dropped some (per ray tile {int(walked.min())}"
+        f"-{int(walked.max())} of {int(kept.max())}); wrapper "
+        f"{cuda_ms(lambda: ck.any_hit(*args), 10):.4f} ms, nearest_dist "
+        f"{cuda_ms(lambda: ck.nearest_dist(*args), 10):.4f} ms")
 
 
-def check_matmul(name, rays, pack, iters, what):
+MATMULS = {"nearest_hit_matmul": (ck.nearest_hit_matmul, ck.nearest_hit_matmul_plain),
+           "nearest_dist_matmul": (ck.nearest_dist_matmul, ck.nearest_dist_matmul_plain)}
+
+
+def check_matmul(name, rays, pack, iters, what, plain_once=False):
     """K5 or K6 against its plain version on one recentred ray batch:
-    bit-equal distances and slots; K5's winners against K1's."""
+    bit-equal distances and slots, also on a second run; K5's winners
+    against K1's."""
     o, d = rays
     c = ck.live_centroid(o)
     op, dp, R = ck.pack_rays(o, d)
     oc = op - c[:, None]
     mask = ck.tile_cull_mask_hierarchical(
         oc, dp, pack._replace(tile_aabb=pack.tile_aabb - c), "octree")
-    rayf = ck.ray_features(oc, dp)
-    g = ck.pack_tri_features(pack.v0 - c, pack.e1, pack.e2)
-    args = (rayf, g, mask, EPS["mt_eps"], EPS["self_hit_eps"])
+    args = (oc, dp, pack.v0 - c, pack.e1, pack.e2, mask, EPS["mt_eps"],
+            EPS["self_hit_eps"])
     want_idx = name == "nearest_hit_matmul"
-    kern = ck.nearest_hit_matmul if want_idx else ck.nearest_dist_matmul
-    plain = ck.nearest_hit_matmul_plain if want_idx else ck.nearest_dist_matmul_plain
-    got, ref = kern(*args), plain(*args)
+    kern, plain = MATMULS[name]
+    ref, plain_ms = timed_once(lambda: plain(*args))
+    got, again = kern(*args), kern(*args)
     torch.cuda.synchronize()
     note = ""
     if want_idx:
-        (got, got_idx), (ref, ref_idx) = got, ref
-        n_idx = int((got_idx != ref_idx).sum())
-        if n_idx:
-            raise AssertionError(f"{name}: {n_idx} winner slots differ from the "
-                                 "plain version")
+        (got, got_idx), (ref, ref_idx), (again, again_idx) = got, ref, again
+        for other, label in ((ref_idx, "the plain version"),
+                             (again_idx, "its own second run")):
+            n_idx = int((got_idx != other).sum())
+            if n_idx:
+                raise AssertionError(f"{name} ({what}): {n_idx} winner slots "
+                                     f"differ from {label}")
         m1 = ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")
         d1, i1 = ck.nearest_hit(op, dp, pack.v0, pack.e1, pack.e2, m1, **EPS)
         flips = int(((got_idx != i1) | (torch.isfinite(got) != torch.isfinite(d1)))[:R].sum())
@@ -393,19 +431,20 @@ def check_matmul(name, rays, pack, iters, what):
         if flips > MAX_EDGE_FLIP_SHARE * R:
             raise AssertionError(f"{name}: {flips} of {R} winners differ from "
                                  f"K1's, more than {MAX_EDGE_FLIP_SHARE:.0e} of the rays")
-    require_bit_equal(name, got, ref)
-    Rp, Tp, kept = rayf.shape[1], g.shape[2], int(mask.sum())
+    require_bit_equal(f"{name} ({what})", got, ref)
+    require_bit_equal(f"{name} ({what}), second run against first", again, got)
+    Rp, Tp, kept = oc.shape[1], pack.v0.shape[0], int(mask.sum())
     bms, by = bound(kept * PAIRS_PER_TILE * OPS_PER_PAIR_MATMUL,
-                    sweep_bytes(Rp, Tp, 64, 256, 8 if want_idx else 4))
+                    sweep_bytes(Rp, Tp, 8 if want_idx else 4))
     res = dict(max_abs_err=max_err(got, ref), ms=cuda_ms(lambda: kern(*args), iters),
                device_ms=device_ms(lambda: kern(*args)),
-               plain_ms=cuda_ms(lambda: plain(*args), 2), bound_ms=bms,
-               bound_by=by, library_ms=None, library_device_ms=None)
+               plain_ms=plain_ms if plain_once else cuda_ms(lambda: plain(*args), 2),
+               bound_ms=bms, bound_by=by, library_ms=None, library_device_ms=None)
     say("kernels", f"{name} ({what}): {Rp} rays x {Tp} triangles, {kept}/"
         f"{mask.numel()} pair tiles kept, {int(torch.isfinite(ref).sum())} hits: "
-        f"bit-equal{note}; wrapper {res['ms']:.4f} ms, device only, worklist "
-        f"included, {res['device_ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.4f} ms, bound {bms:.5f} ms ({by})")
+        f"bit-equal, and to its own second run{note}; wrapper {res['ms']:.4f} ms, "
+        f"device only {res['device_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+        f"bound {bms:.5f} ms ({by})")
     return res
 
 
@@ -485,8 +524,8 @@ def check_kernels(dev):
     chunk of the sphere scene's CPU-mode primary rays and its 131,072 shadow
     rays, K4 on the shadow rays of one GPU-mode chunk. Every kernel is also
     held on 4,096 rays of the 96k-triangle grid (interval hierarchy, 12 MB
-    table), K1 and K2 on one full chunk of it too (`grid_chunk` in the
-    result), K1 on exact ties and K3 on its edge cases."""
+    table) and every sweep on one full chunk of it (`grid_4096` and
+    `grid_chunk` in the result), K1 on exact ties and K3 on its edge cases."""
     chunk = RenderConfig().ray_chunk
     sph = make_sphere_scene(512, 512, **SPHERES).to(dev)
     sph_pack = scene_pack(sph)
@@ -507,7 +546,7 @@ def check_kernels(dev):
     results["nearest_dist_matmul"] = check_matmul(
         "nearest_dist_matmul", shad, sph_pack, 20, "spheres, its shadow rays")
     check_any_hit(shad, sph_pack, 20, "spheres, CPU-mode chunk's shadow rays")
-    check_any_hit_early_exit(sph_pack, dev)
+    check_any_hit_early_exit(sph_pack, dev, chunk)
 
     sph_hi = make_sphere_scene(512 * ALIASING, 512 * ALIASING, **SPHERES).to(dev)
     gprim = gpu_primary_rays(sph_hi, chunk)
@@ -521,16 +560,23 @@ def check_kernels(dev):
     results["grid_4096"] = {
         "nearest_hit": check_sweep("nearest_hit", few, grid_pack, 10, "grid"),
         "nearest_dist": check_sweep("nearest_dist", few, grid_pack, 10, "grid"),
-        "fetch_rows": check_fetch(grid_pack, winners(few, grid_pack), 50)}
-    full = cpu_primary_rays(grid, chunk)
-    results["grid_chunk"] = {
-        name: check_sweep(name, full, grid_pack, 10, "grid, one full chunk",
-                          plain_once=True)
-        for name in ("nearest_hit", "nearest_dist")}
-    check_any_hit(few, grid_pack, 10, "grid primary rays")
+        "fetch_rows": check_fetch(grid_pack, winners(few, grid_pack), 50),
+        "any_hit": check_any_hit(few, grid_pack, 10, "grid primary rays"),
+        "nearest_hit_matmul": check_matmul("nearest_hit_matmul", few, grid_pack,
+                                           10, "grid"),
+        "nearest_dist_matmul": check_matmul("nearest_dist_matmul", few, grid_pack,
+                                            10, "grid")}
     check_any_hit(shadows_of(grid, few, grid_pack), grid_pack, 10, "grid shadow rays")
-    check_matmul("nearest_hit_matmul", few, grid_pack, 10, "grid")
-    check_matmul("nearest_dist_matmul", few, grid_pack, 10, "grid")
+    full = cpu_primary_rays(grid, chunk)
+    what = "grid, one full chunk"
+    results["grid_chunk"] = {
+        name: check_sweep(name, full, grid_pack, 10, what, plain_once=True)
+        for name in SWEEPS}
+    results["grid_chunk"]["any_hit"] = check_any_hit(full, grid_pack, 10, what,
+                                                     plain_once=True)
+    for name in MATMULS:
+        results["grid_chunk"][name] = check_matmul(name, full, grid_pack, 10, what,
+                                                   plain_once=True)
     return results
 
 
@@ -589,17 +635,33 @@ def require_same_image(a, b, what):
     say("render", f"{what}: uint8-equal")
 
 
-def report_frames(what, renderer, times, n_primary, smi):
+def report_frames(what, renderer, times, n_primary, smi) -> float:
+    """Print a path's frame times; returns their median."""
     ms = float(np.median(times))
     say("render", f"{what} ({renderer.scene.n_triangles} tris): frames "
         f"{[round(t, 3) for t in times]} ms, median {ms:.3f} ms/frame, "
         f"{n_primary / ms * 1e3 / 1e6:.3f} M primary rays/s; {smi}")
+    return ms
 
 
-def profile_frame(renderer, what):
-    """Trace one warm frame: kernel launches, the device's busy share (union
-    of kernel intervals over the frame's host wall time) and the time in the
-    port's own kernels."""
+OWN_KERNELS = ("fetch_rows_kernel", "sweep_list_kernel") + tuple(
+    f"sweep_kernel<{kind}>" for kind in ("NEAREST_HIT", "NEAREST_DIST", "ANY_HIT",
+                                         "MATMUL_HIT", "MATMUL_DIST"))
+
+
+def own_kernel(name: str):
+    """The port's kernel a profiled device kernel is, or None. A sweep's
+    demangled name ends in its kind's number: sweep_kernel<2> or <(int)2>."""
+    if "sweep_kernel<" in name:
+        digits = [c for c in name.split("sweep_kernel<")[1].split(">")[0] if c.isdigit()]
+        return OWN_KERNELS[2 + int(digits[-1])] if digits else None
+    return next((t for t in OWN_KERNELS[:2] if t in name), None)
+
+
+def profile_frame(renderer, what) -> int:
+    """Trace one warm frame: kernel launches (returned), the device's busy
+    share (union of kernel intervals over the frame's host wall time) and
+    the time in the port's own kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -618,10 +680,7 @@ def profile_frame(renderer, what):
         end = max(end, e)
     own = {}
     for k in kernels:
-        tag = next((t for t in ("matmul_sweep_kernel", "any_hit_kernel",
-                                "fetch_rows_kernel", "sweep_list_kernel",
-                                "sweep_kernel")
-                    if t in k.name), None)
+        tag = own_kernel(k.name)
         if tag is not None:
             n, us = own.get(tag, (0, 0.0))
             own[tag] = (n + 1, us + k.time_range.elapsed_us())
@@ -629,6 +688,7 @@ def profile_frame(renderer, what):
         f"device kernels and copies, device busy {busy_us / 1e3:.1f} ms = "
         f"{busy_us / 10 / wall_ms:.1f}% of the frame; own kernels "
         + ", ".join(f"{t} {us / 1e3:.2f} ms in {n}" for t, (n, us) in sorted(own.items())))
+    return len(kernels)
 
 
 def host_us(fn, n: int = 2000) -> float:
@@ -644,25 +704,25 @@ def host_us(fn, n: int = 2000) -> float:
 
 
 def profile_fetch_wrapper(dev):
-    """Where K3's wrapper spends its host time at 4,096 rows, beside the
-    library call's and one in-place torch op's."""
+    """K3's wrapper's host time per call beside the library call's, at 4,096
+    and at 65,536 rows of a (96000, 32) table, and where it goes."""
     gen = torch.Generator().manual_seed(3)
-    table = torch.rand((96000, ck.TABLE_WIDTH_MAT), generator=gen).to(dev)
-    idx = torch.randint(0, 96000, (4096,), generator=gen, dtype=torch.int32).to(dev)
-    long_idx, out = idx.long(), torch.empty((4096, ck.TABLE_WIDTH_MAT), device=dev)
-    launch = ck._lib().rgt_fetch_rows
-    args = (table.data_ptr(), 96000, ck.TABLE_WIDTH_MAT, idx.data_ptr(), 1, 4096,
-            out.data_ptr(), ck._stream(dev))
-    parts = {"fetch_rows wrapper": lambda: ck.fetch_rows(table, idx),
-             "index_select": lambda: torch.index_select(table, 0, long_idx),
-             "torch.empty of the result": lambda: torch.empty_like(out),
-             "stream handle": lambda: ck._stream(dev),
-             "torch.cuda.current_stream().cuda_stream":
-                 lambda: torch.cuda.current_stream(dev).cuda_stream,
-             "bare ctypes launch": lambda: launch(*args),
-             "out.add_(1.0)": lambda: out.add_(1.0)}
-    say("profile", "host microseconds per call, 4,096 rows of a (96000, 32) table: "
-        + ", ".join(f"{k} {host_us(fn):.2f}" for k, fn in parts.items()))
+    table = ck.check_winner_table(
+        torch.rand((96000, ck.TABLE_WIDTH_MAT), generator=gen).to(dev))
+    launch = ck._kernels()["fetch_rows"]
+    for n in (4096, 65536):
+        idx = torch.randint(0, 96000, (n,), generator=gen, dtype=torch.int32).to(dev)
+        long_idx, out = idx.long(), torch.empty((n, ck.TABLE_WIDTH_MAT), device=dev)
+        args = (table.data_ptr(), 96000, ck.TABLE_WIDTH_MAT, idx.data_ptr(), 1, n,
+                out.data_ptr(), ck._stream(dev))
+        parts = {"fetch_rows wrapper": lambda: ck.fetch_rows(table, idx),
+                 "index_select": lambda: torch.index_select(table, 0, long_idx),
+                 "torch.empty of the result": lambda: torch.empty_like(out),
+                 "stream handle": lambda: ck._stream(dev),
+                 "bare ctypes launch": lambda: launch(*args),
+                 "out.add_(1.0)": lambda: out.add_(1.0)}
+        say("profile", f"host microseconds per call, {n} rows of a (96000, 32) "
+            "table: " + ", ".join(f"{k} {host_us(fn):.2f}" for k, fn in parts.items()))
 
 
 def main(argv) -> int:
@@ -703,8 +763,9 @@ def main(argv) -> int:
     _, times = time_frames(renderer, 3)
     report_frames(f"CPU mode, spheres 512x512, cuda (depth {renderer.depth})",
                   renderer, times, cpu_rays, smi)
+    traced = {}
     if want_profile:
-        profile_frame(renderer, "CPU mode, spheres 512x512, cuda")
+        traced["cuda"] = profile_frame(renderer, "CPU mode, spheres 512x512, cuda")
 
     small = make_sphere_scene(128, 128, **SPHERES)
     require_same_image(
@@ -760,7 +821,8 @@ def main(argv) -> int:
     report_frames(f"GPU mode, spheres 512x512 x{ALIASING}, cuda, distance sweep",
                   dist_renderer, t_dist, gpu_rays, smi)
     if want_profile:
-        profile_frame(any_renderer, f"GPU mode, spheres 512x512 x{ALIASING}, any-hit")
+        traced["GPU mode, any-hit"] = profile_frame(
+            any_renderer, f"GPU mode, spheres 512x512 x{ALIASING}, any-hit")
 
     small = make_sphere_scene(64, 64, **SPHERES)
     require_same_image(
@@ -778,10 +840,21 @@ def main(argv) -> int:
     d = assert_images_close(u8(mm_img), u8(cuda_img), tol=1,
                             context="cuda_matmul against cuda, spheres 512x512")
     say("render", f"cuda_matmul against cuda, spheres 512x512: {d}")
-    _, times = time_frames(mm, 3)
-    report_frames("CPU mode, spheres 512x512, cuda_matmul", mm, times, cpu_rays, smi)
+    # two versions in one call, in turns: cuda_matmul, cuda, cuda_matmul
+    _, times = time_frames(mm, 2)
+    _, again = time_frames(renderer, 2)
+    times += time_frames(mm, 1)[1]
+    mm_frame_ms = report_frames("CPU mode, spheres 512x512, cuda_matmul", mm, times,
+                                cpu_rays, smi)
+    cuda_again_ms = report_frames("CPU mode, spheres 512x512, cuda, again", renderer,
+                                  again, cpu_rays, smi)
+    say("render", "cuda_matmul frame / cuda frame beside it: "
+        f"{mm_frame_ms / cuda_again_ms:.3f}")
     if want_profile:
-        profile_frame(mm, "CPU mode, spheres 512x512, cuda_matmul")
+        traced["cuda_matmul"] = profile_frame(mm, "CPU mode, spheres 512x512, cuda_matmul")
+        say("profile", "device kernels and copies per frame, spheres 512x512: "
+            + ", ".join(f"{k} {n}" for k, n in traced.items())
+            + f"; cuda_matmul - cuda = {traced['cuda_matmul'] - traced['cuda']}")
 
     path_of = {"nearest_hit": "cpu_mode", "nearest_dist": "cpu_mode",
                "fetch_rows": "cpu_mode", "any_hit": "gpu_mode",

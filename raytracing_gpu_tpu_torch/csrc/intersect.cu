@@ -1,14 +1,18 @@
 // Hand-written Hopper kernels for the render's intersection hot path.
 //
 // Six kernels, one translation unit, one build (csrc/build.py):
-//   sweep_kernel<true>   (K1) replaces raytracing_gpu_tpu/ops/pallas_intersect.py
-//                             _nearest_kernel / nearest_hit_pallas
-//   sweep_kernel<false>  (K2) replaces _dist_kernel / nearest_dist_pallas
-//   fetch_rows_kernel<L> (K3) replaces _fetch_small_kernel and _fetch_kernel
-//                             (_fetch_rows_impl)
-//   any_hit_kernel       (K4) replaces _any_kernel / any_hit_pallas
-//   matmul_sweep_kernel<true>  (K5) replaces _mxu_kernel / nearest_hit_mxu
-//   matmul_sweep_kernel<false> (K6) replaces _mxu_dist_kernel / nearest_dist_mxu
+//   sweep_kernel<NEAREST_HIT>  (K1) replaces raytracing_gpu_tpu/ops/
+//                              pallas_intersect.py _nearest_kernel /
+//                              nearest_hit_pallas
+//   sweep_kernel<NEAREST_DIST> (K2) replaces _dist_kernel / nearest_dist_pallas
+//   fetch_rows_kernel<L>       (K3) replaces _fetch_small_kernel and
+//                              _fetch_kernel (_fetch_rows_impl)
+//   sweep_kernel<ANY_HIT>      (K4) replaces _any_kernel / any_hit_pallas
+//   sweep_kernel<MATMUL_HIT>   (K5) replaces _mxu_kernel / nearest_hit_mxu
+//   sweep_kernel<MATMUL_DIST>  (K6) replaces _mxu_dist_kernel / nearest_dist_mxu
+// The five sweeps are one persistent kernel over one queue of work units
+// (see K1 / K2 below); they differ in what a thread keeps of its ray, in what
+// a unit stages and in how a unit's result joins the others.
 // Each has a plain PyTorch twin in ops/cuda_intersect.py that must agree with
 // it bit for bit. That holds because this file is compiled with -fmad=false
 // and without --use_fast_math: every multiply and add rounds on its own, the
@@ -21,6 +25,8 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <type_traits>
 
 #define TILE_R 256
 #define TILE_T 256
@@ -91,36 +97,6 @@ __device__ __forceinline__ float mt_pair(const Ray& r, const Tri& T,
     dist = t * r.dlen;
   }
   return dist > self_hit_eps ? dist : CUDART_INF_F;
-}
-
-// One triangle tile staged in shared memory, component-major so that the 256
-// threads of a block read the same address (a broadcast) in the scan loop.
-// K4's staging; K1/K2 use TriRows below.
-struct TriTile {
-  float c[9][TILE_T];  // v0x v0y v0z e1x e1y e1z e2x e2y e2z
-};
-
-__device__ __forceinline__ void stage_tile(TriTile& s,
-                                           const float* __restrict__ v0,
-                                           const float* __restrict__ e1,
-                                           const float* __restrict__ e2,
-                                           int j) {
-  const int t = threadIdx.x;
-  const long base = (long)(j * TILE_T + t) * 3;
-  for (int k = 0; k < 3; ++k) {
-    s.c[k][t] = v0[base + k];
-    s.c[3 + k][t] = e1[base + k];
-    s.c[6 + k][t] = e2[base + k];
-  }
-}
-
-// One (ray, triangle) pair from a TriTile: +inf when rejected.
-template <bool REF_DIST>
-__device__ __forceinline__ float mt_pair(const Ray& r, const TriTile& s, int i,
-                                         float mt_eps, float self_hit_eps) {
-  const Tri T = {s.c[0][i], s.c[1][i], s.c[2][i], s.c[3][i], s.c[4][i],
-                 s.c[5][i], s.c[6][i], s.c[7][i], s.c[8][i]};
-  return mt_pair<REF_DIST>(r, T, mt_eps, self_hit_eps);
 }
 
 // K1 / K2. What the TPU kernel did: a (triangle tile, worklisted ray tile)
@@ -230,32 +206,275 @@ __device__ __forceinline__ void scan_rows(
     atomicMin(&bits_out[r], bits);
 }
 
-// The queue, in scratch memory. work[0]: kept pair tiles, work[1]: the next
-// unit to hand out (both zeroed before), work[2 + k]: the k-th kept pair tile
-// as j * nR + rt, in no fixed order.
-template <typename T>
-__global__ void sweep_list_kernel(T* __restrict__ out, T value, int n,
-                                  const int* __restrict__ mask, int n_pairs,
-                                  int* __restrict__ work) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = value;
-  if (i < n_pairs && mask[i] > 0) work[2 + atomicAdd(&work[0], 1)] = i;
+// K4. What the TPU kernel did: the K2 grid with an int32 "occluded" row per
+// ray tile in VMEM; a cell is skipped once its ray tile's row is all ones, and
+// dead lanes (parked or padded rays, |origin| >= 1e20) are seeded occluded so
+// they cannot pin a tile that is otherwise saturated.
+//
+// What bounds it: as K2, instruction throughput over the scanned pairs; the
+// work depends on the data (a saturated ray tile drops the rest of its units).
+// The first port walked one block per ray tile over an ordered worklist and
+// voted with __syncthreads_and before each triangle tile: 0.32-0.37 ms on a
+// GPU-mode chunk's shadow rays where K2 took 0.09, 3.65 ms on 4,096 rays of
+// the grid (16 blocks for 132 SMs).
+//
+// The design: K1/K2's queue of (kept pair tile, SWEEP_SUB triangles) units.
+// The result is an OR, so it needs neither key nor order. A thread that
+// accepts a pair sets its ray's byte of the result and stops; the byte is set
+// by an atomicOr on its 32-bit word, so exactly one of the blocks that may be
+// scanning the same ray sees it flip, and that one takes the ray off its ray
+// tile's count of live, not yet occluded lanes (scratch memory, set by the
+// listing kernel, where dead lanes do not count). A thread whose ray is dead
+// or already flagged skips its scan (it still helps stage). A unit whose ray
+// tile's count has reached 0 is not scanned at all: the early exit, across
+// units, and block-uniform because one thread reads the count and the
+// staging barrier hands its verdict to the block. The count is read while
+// the unit is staged, so a unit that is dropped was staged for nothing, and
+// no unit waits for the count: read by the drawing thread before staging,
+// one more round trip to L2 stood in front of every unit, which cost 1.5-2%
+// wherever nothing saturates (GPU-mode chunk's shadow rays 0.0766 against
+// 0.0755 ms) and saved 3-10% where much does (65,536 rays onto the ground:
+// 0.43-0.47 against 0.48 ms); the renders' rays are of the first kind.
+// walked[ray tile] counts the units that were scanned; it depends on how the
+// blocks happened to overlap in time. For a live ray the result equals
+// `nearest_dist < inf`, for a dead one it is false.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W, device time per launch, `python3
+// chip_smoke.py`, K2 on the same rays beside it): GPU-mode chunk's 131,072
+// shadow rays (682 pair tiles) 0.0755 / 0.0851 ms; CPU-mode chunk's 0.0417 /
+// 0.0438; grid, 4,096 primary rays 0.1337 / 0.1323 (nothing saturates: K2's
+// work plus the counts); its shadow rays 0.0182 / 0.0235; one full grid
+// chunk 0.63 / 0.83 (25,036 of 30,964 units scanned); 65,536 rays straight
+// down onto the ground 0.48 / 0.60 (14,351 of 20,480).
+__device__ __forceinline__ bool live_origin(const Ray& r) {
+  return fabsf(r.ox) < 1e20f && fabsf(r.oy) < 1e20f && fabsf(r.oz) < 1e20f;
+}
+
+__device__ __forceinline__ void scan_rows_any(const TriRows& s, const Ray& ray,
+                                              int r, float mt_eps,
+                                              float self_hit_eps,
+                                              unsigned char* __restrict__ occ,
+                                              int* __restrict__ live_count) {
+  if (!live_origin(ray) || ((volatile unsigned char*)occ)[r]) return;
+#pragma unroll 2
+  for (int i = 0; i < SWEEP_SUB; ++i) {
+    const float4 A = s.q[i][0], B = s.q[i][1];
+    const float C = s.q[i][2].x;
+    const Tri T = {A.x, A.y, A.z, A.w, B.x, B.y, B.z, B.w, C};
+    if (mt_pair<false>(ray, T, mt_eps, self_hit_eps) < CUDART_INF_F) {
+      const unsigned bit = 1u << (8 * (r & 3));  // byte r of a bool array
+      if (!(atomicOr((unsigned*)occ + (r >> 2), bit) & bit))
+        atomicSub(live_count, 1);  // once per ray: only the flip counts
+      return;
+    }
+  }
+}
+
+// K5 / K6. What the TPU kernel did: the four Möller–Trumbore determinants of
+// a 256x256 pair tile as four (16 x 256)^T (16 x 256) products on the MXU --
+// ray features F = [d, m = o x d, o, 1, |d|, nd, 0, 0] against triangle
+// features G = [a; u_num; v_num; t_num] -- then a short elementwise epilogue
+// (divide, the acceptance chain, distance, min/argmin). Rays are recentred on
+// the centroid of the live rays by the caller, since the expanded triple
+// products cancel badly far from the origin.
+//
+// What bounds it: ~54 FP32 operations per pair (34 in the products) and
+// almost no device-memory traffic: instruction throughput, as K1. The first
+// port ran one block per ray tile over an ordered worklist (0.30 / 0.27 ms on
+// the sphere chunk, 4.5 / 4.2 ms on 4,096 rays of the grid), and its caller
+// packed a (16, Rp) and a (4, 16, Tp) feature tensor with a dozen PyTorch ops
+// on every call (24.6 MB for the grid).
+//
+// The design: K1/K2's queue and units, and the features are made here. The
+// kernel takes what K1 takes -- recentred rays and (v0 - c, e1, e2). A thread
+// computes its ray's 13 features once per ray tile; a unit's 64 triangles
+// are turned into their 19 feature rows (those that are not zero by
+// construction: ga 0-2, gu 0-5, gv 0-5, gt 6-9) while they are staged, ~40
+// operations per triangle against 256 x 54 in its scan. Both follow
+// ops/cuda_intersect.ray_features and pack_tri_features operation for
+// operation, and each product is one left-to-right chain of separately
+// rounded multiplies and adds over exactly those rows -- the chain of the
+// plain twin (_matmul_pairs) -- so kernel and twin agree bit for bit. Units
+// combine as K1's and K2's do: atomicMin on (bits(dist) << 32) | slot, or on
+// the bits. The products are computed in this body; no library GEMM is called.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W, device time per launch, `python3
+// chip_smoke.py`): sphere chunk K5 0.060 ms (536 pair tiles), K6 0.037 ms
+// (131,072 shadow rays, 287 tiles); grid, 4,096 rays 0.112 / 0.108 ms; one
+// full grid chunk (7,741 tiles) 0.70 / 0.68 ms: 1.7-2.4x the bound, and
+// 0.8x K1's and K2's times on the same rays (the chain to the `u` reject is
+// shorter than theirs).
+//
+// The tensor-core form was built and measured, and lost. Each unit's four
+// products ran as mma.sync.aligned.m16n8k8 TF32 from registers (the simple
+// route: a warp owns 32 rays, B fragments from shared memory, no descriptors
+// or warpgroup protocol), with the 3xTF32 split that float32 accuracy needs
+// (big = tf32(x), small = tf32(x - big); small x big + big x small + big x
+// big): 12 mma per 16 x 8 pairs, then divide and acceptance chain for every
+// pair from the accumulators. Against this scalar form in the same call it
+// took 0.0755 against 0.0597 ms (K5, sphere chunk), 0.0427 / 0.0366 (K6),
+// 0.146 / 0.112 and 0.143 / 0.108 (grid, 4,096 rays), 0.94 / 0.69 and 0.91 /
+// 0.66 (grid chunk): 1.17-1.37x slower everywhere. Its answers were usable
+// (4, 1 and 32 of 65,536 / 4,096 / 65,536 winners differed from the plain
+// version's, common winners' distances within 1.1e-6 relative, repeats
+// bit-equal), but every pair pays the epilogue the scalar chain skips after
+// a reject, and the 3 mma per pair and thread occupy the tensor pipe for
+// about as long as the whole scalar chain to the `u` reject takes. wgmma
+// would shorten only the mma share (at its full rate about a fifth of this
+// kernel's time); with no early reject left to gain, it was not built.
+struct RayFeat {
+  Ray ray;           // d (features 0-2), o (6-8), |d| (10), d/|d| (11-13)
+  float mx, my, mz;  // m = o x d (3-5); feature 9 is the constant 1
+};
+
+__device__ __forceinline__ RayFeat load_ray_features(
+    const float* __restrict__ op, const float* __restrict__ dp, int Rp, int r) {
+  RayFeat f;
+  f.ray = load_ray(op, dp, Rp, r);
+  const Ray& a = f.ray;
+  f.mx = a.oy * a.dz - a.oz * a.dy;
+  f.my = a.oz * a.dx - a.ox * a.dz;
+  f.mz = a.ox * a.dy - a.oy * a.dx;
+  return f;
+}
+
+// SWEEP_SUB triangles as feature rows:
+// q[i] = {ga0 ga1 ga2 gu0 | gu1 gu2 gu3 gu4 | gu5 gv0 gv1 gv2 |
+//         gv3 gv4 gv5 gt6 | gt7 gt8 gt9 -}.
+struct FeatRows {
+  float4 q[SWEEP_SUB][5];
+};
+
+// Stage the features of the SWEEP_SUB triangles from clustered slot `first`
+// on: n = e1 x e2; ga = -n; gu = [-(e2 x v0), e2]; gv = [-(v0 x e1), -e1];
+// gt = [n, -(v0 . n)] with the dot product left-associated.
+__device__ __forceinline__ void stage_features(FeatRows& s,
+                                               const float* __restrict__ v0,
+                                               const float* __restrict__ e1,
+                                               const float* __restrict__ e2,
+                                               int first) {
+  if (threadIdx.x >= SWEEP_SUB) return;
+  const long base = (long)(first + threadIdx.x) * 3;
+  const float v0x = v0[base], v0y = v0[base + 1], v0z = v0[base + 2];
+  const float e1x = e1[base], e1y = e1[base + 1], e1z = e1[base + 2];
+  const float e2x = e2[base], e2y = e2[base + 1], e2z = e2[base + 2];
+  const float nx = e1y * e2z - e1z * e2y;
+  const float ny = e1z * e2x - e1x * e2z;
+  const float nz = e1x * e2y - e1y * e2x;
+  const float ax = e2y * v0z - e2z * v0y;  // e2 x v0
+  const float ay = e2z * v0x - e2x * v0z;
+  const float az = e2x * v0y - e2y * v0x;
+  const float bx = v0y * e1z - v0z * e1y;  // v0 x e1
+  const float by = v0z * e1x - v0x * e1z;
+  const float bz = v0x * e1y - v0y * e1x;
+  const float g9 = -((v0x * nx + v0y * ny) + v0z * nz);
+  float4* q = s.q[threadIdx.x];
+  q[0] = make_float4(-nx, -ny, -nz, -ax);
+  q[1] = make_float4(-ay, -az, e2x, e2y);
+  q[2] = make_float4(e2z, -bx, -by, -bz);
+  q[3] = make_float4(-e1x, -e1y, -e1z, nx);
+  q[4] = make_float4(ny, nz, g9, 0.0f);
 }
 
 template <bool WANT_IDX>
+__device__ __forceinline__ void scan_features(
+    const FeatRows& s, const RayFeat& f, int r, int first, float mt_eps,
+    float self_hit_eps, unsigned long long* __restrict__ key_out,
+    unsigned int* __restrict__ bits_out) {
+  const Ray& y = f.ray;
+  float best = CUDART_INF_F;
+  int best_idx = 0;
+#pragma unroll 2
+  for (int i = 0; i < SWEEP_SUB; ++i) {
+    const float4 A = s.q[i][0];
+    const float a = (A.x * y.dx + A.y * y.dy) + A.z * y.dz;
+    if (!(fabsf(a) >= mt_eps)) continue;
+    const float inv = 1.0f / a;
+    const float4 B = s.q[i][1], C = s.q[i][2];
+    const float un = ((((A.w * y.dx + B.x * y.dy) + B.y * y.dz) + B.z * f.mx) +
+                      B.w * f.my) + C.x * f.mz;
+    const float u = un * inv;
+    if (!(u >= 0.0f && u <= 1.0f)) continue;
+    const float4 D = s.q[i][3];
+    const float vn = ((((C.y * y.dx + C.z * y.dy) + C.w * y.dz) + D.x * f.mx) +
+                      D.y * f.my) + D.z * f.mz;
+    const float v = vn * inv;
+    if (!(v >= 0.0f && u + v <= 1.0f)) continue;
+    const float4 E = s.q[i][4];
+    // the last term is gt9 * feature 9, and feature 9 is exactly 1
+    const float tn = ((D.w * y.ox + E.x * y.oy) + E.y * y.oz) + E.z;
+    const float t = tn * inv;
+    if (!(t > mt_eps)) continue;
+    const float td = t * y.dlen;
+    float dist;
+    if (WANT_IDX) {  // reference distance from the recentred origin
+      const float ddx = (y.ox + y.ndx * td) - y.ox;
+      const float ddy = (y.oy + y.ndy * td) - y.oy;
+      const float ddz = (y.oz + y.ndz * td) - y.oz;
+      dist = sqrtf((ddx * ddx + ddy * ddy) + ddz * ddz);
+    } else {
+      dist = td;
+    }
+    if (dist > self_hit_eps && dist < best) {
+      best = dist;
+      if (WANT_IDX) best_idx = first + i;
+    }
+  }
+  if (!(best < CUDART_INF_F)) return;  // a miss leaves the init value
+  const unsigned bits = __float_as_uint(best);
+  if (WANT_IDX)
+    atomicMin(&key_out[r], ((unsigned long long)bits << 32) | (unsigned)best_idx);
+  else
+    atomicMin(&bits_out[r], bits);
+}
+
+enum SweepKind { NEAREST_HIT, NEAREST_DIST, ANY_HIT, MATMUL_HIT, MATMUL_DIST };
+
+// The queue, in scratch memory. work[0]: kept pair tiles, work[1]: the next
+// unit to hand out (both zeroed before), work[2 + k]: the k-th kept pair tile
+// as j * nR + rt, in no fixed order. K4 only: live[rt] is the ray tile's count
+// of live rays (all of them still unoccluded), walked[rt] its units scanned.
+// One block of the listing is one ray tile (TILE_R threads).
+template <typename T>
+__global__ void __launch_bounds__(TILE_R)
+    sweep_list_kernel(T* __restrict__ out, T value, int n,
+                      const int* __restrict__ mask, int n_pairs,
+                      int* __restrict__ work, const float* __restrict__ op,
+                      int* __restrict__ live, int* __restrict__ walked) {
+  const int i = blockIdx.x * TILE_R + threadIdx.x;
+  if (i < n) out[i] = value;
+  if (i < n_pairs && mask[i] > 0) work[2 + atomicAdd(&work[0], 1)] = i;
+  if (live == nullptr) return;  // the same for every thread
+  const bool alive = i < n && fabsf(op[i]) < 1e20f &&
+                     fabsf(op[n + i]) < 1e20f && fabsf(op[2 * n + i]) < 1e20f;
+  const int n_alive = __syncthreads_count(alive);
+  if (threadIdx.x == 0 && i < n) {
+    live[blockIdx.x] = n_alive;
+    walked[blockIdx.x] = 0;
+  }
+}
+
+// `out` is K1's and K5's int64 keys, K2's and K6's distance bits or K4's
+// bytes; `live` and `walked` are K4's alone.
+template <int KIND>
 __global__ void __launch_bounds__(TILE_R)
     sweep_kernel(const float* __restrict__ op, const float* __restrict__ dp,
                  int Rp, const float* __restrict__ v0,
                  const float* __restrict__ e1, const float* __restrict__ e2,
                  int* __restrict__ work, float mt_eps, float self_hit_eps,
-                 unsigned long long* __restrict__ key_out,
-                 unsigned int* __restrict__ bits_out) {
-  __shared__ TriRows s;
+                 void* __restrict__ out, int* __restrict__ live,
+                 int* __restrict__ walked) {
+  constexpr bool MATMUL = KIND == MATMUL_HIT || KIND == MATMUL_DIST;
+  constexpr bool WANT_IDX = KIND == NEAREST_HIT || KIND == MATMUL_HIT;
+  __shared__ typename std::conditional<MATMUL, FeatRows, TriRows>::type s;
   __shared__ int next;
+  __shared__ int scan;  // K4: this unit's ray tile still has a lane to occlude
+  unsigned long long* key_out = WANT_IDX ? (unsigned long long*)out : nullptr;
+  unsigned int* bits_out = WANT_IDX ? nullptr : (unsigned int*)out;
   const int nR = Rp / TILE_R;
   const int n_items = work[0] * SWEEP_PARTS;
   int rt = -1;
-  Ray ray;
+  typename std::conditional<MATMUL, RayFeat, Ray>::type ray;
   for (;;) {
     __syncthreads();  // previous rows consumed, previous `next` read
     if (threadIdx.x == 0) next = atomicAdd(&work[1], 1);
@@ -268,12 +487,36 @@ __global__ void __launch_bounds__(TILE_R)
     const int r = (pair % nR) * TILE_R + threadIdx.x;
     if (pair % nR != rt) {
       rt = pair % nR;
-      ray = load_ray(op, dp, Rp, r);
+      if constexpr (MATMUL)
+        ray = load_ray_features(op, dp, Rp, r);
+      else
+        ray = load_ray(op, dp, Rp, r);
     }
-    stage_rows(s, v0, e1, e2, first);
+    // K4's early exit: one thread reads the ray tile's count while the unit
+    // is staged (no round trip of its own), the barrier hands its verdict to
+    // the block, and a unit with nothing left to occlude is not scanned
+    int lanes_left = 0;
+    if (KIND == ANY_HIT && threadIdx.x == 0)
+      lanes_left = *(volatile int*)&live[rt];
+    if constexpr (MATMUL)
+      stage_features(s, v0, e1, e2, first);
+    else
+      stage_rows(s, v0, e1, e2, first);
+    if (KIND == ANY_HIT && threadIdx.x == 0) {
+      scan = lanes_left > 0;
+      if (scan) atomicAdd(&walked[rt], 1);
+    }
     __syncthreads();
-    scan_rows<WANT_IDX>(s, ray, r, first, mt_eps, self_hit_eps, key_out,
-                        bits_out);
+    if (KIND == ANY_HIT && !scan) continue;
+    if constexpr (MATMUL)
+      scan_features<WANT_IDX>(s, ray, r, first, mt_eps, self_hit_eps, key_out,
+                              bits_out);
+    else if constexpr (KIND == ANY_HIT)
+      scan_rows_any(s, ray, r, mt_eps, self_hit_eps, (unsigned char*)out,
+                    &live[rt]);
+    else
+      scan_rows<WANT_IDX>(s, ray, r, first, mt_eps, self_hit_eps, key_out,
+                          bits_out);
   }
 }
 
@@ -315,187 +558,39 @@ __global__ void __launch_bounds__(FETCH_ROWS * L)
       (j >= 0 && j < Tp) ? __ldg(table + j * L + lane) : nan4;
 }
 
-// K4. What the TPU kernel did: the K2 grid with an int32 "occluded" row per
-// ray tile in VMEM; a cell is skipped once its ray tile's row is all ones, and
-// dead lanes (parked or padded rays, |origin| >= 1e20) are seeded occluded so
-// they cannot pin a tile that is otherwise saturated. Here the row is one
-// flag per thread. Before each worklist entry the block votes with
-// __syncthreads_and: the exit is block-uniform, which it must be because the
-// loop holds barriers, and the vote doubles as the "previous tile consumed"
-// barrier. A thread that is already occluded still stages its share of the
-// next tile and skips only its own scan; a scanning thread stops at its
-// first accepted pair. The result is an OR over pairs, so no order matters:
-// for a live ray it equals `nearest_dist < inf`, for a dead one it is false.
-// walked_out[ray tile] is the number of triangle tiles the block scanned.
-//
-// What bounds it: as K2, FP32 throughput over the scanned pairs; the work depends
-// on the data (a saturated tile ends its walk early).
-__global__ void __launch_bounds__(TILE_R)
-    any_hit_kernel(const float* __restrict__ op, const float* __restrict__ dp,
-                   int Rp, const float* __restrict__ v0,
-                   const float* __restrict__ e1, const float* __restrict__ e2,
-                   const int* __restrict__ order, const int* __restrict__ count,
-                   int nT, float mt_eps, float self_hit_eps,
-                   unsigned char* __restrict__ occ_out,
-                   int* __restrict__ walked_out) {
-  __shared__ TriTile s;
-  const int rt = blockIdx.x;
-  const int r = rt * TILE_R + threadIdx.x;
-  const Ray ray = load_ray(op, dp, Rp, r);
-  const bool live = fabsf(ray.ox) < 1e20f && fabsf(ray.oy) < 1e20f &&
-                    fabsf(ray.oz) < 1e20f;
-  bool occ = !live;
-  const int n = count[rt];
-  int k = 0;
-  for (; k < n; ++k) {
-    if (__syncthreads_and(occ)) break;  // uniform: every live lane occluded
-    const int j = order[(long)rt * nT + k];
-    stage_tile(s, v0, e1, e2, j);
-    __syncthreads();
-    if (!occ) {
-      for (int i = 0; i < TILE_T; ++i) {
-        if (mt_pair<false>(ray, s, i, mt_eps, self_hit_eps) < CUDART_INF_F) {
-          occ = true;
-          break;
-        }
-      }
-    }
-  }
-  occ_out[r] = (occ && live) ? 1 : 0;
-  if (threadIdx.x == 0) walked_out[rt] = k;
-}
-
-// K5 / K6. What the TPU kernel did: the four Möller–Trumbore determinants of
-// a 256x256 pair tile as four (16 x 256)^T (16 x 256) products on the MXU --
-// ray features F = [d, m = o x d, o, 1, |d|, nd, 0, 0] against triangle
-// features G = [a; u_num; v_num; t_num] -- then a short elementwise epilogue
-// (divide, the acceptance chain, distance, min/argmin). Rays are recentred on
-// the centroid of the live rays by the caller, since the expanded triple
-// products cancel badly far from the origin.
-//
-// Here: the K1 grid (one block per ray tile, one thread per ray, ascending
-// worklist, strict '<'). A thread keeps its ray's 14 used features in
-// registers; of each triangle tile's (4,16,256) G block only the 19 rows that
-// are not zero by construction are staged (ga 0-2, gu 0-5, gv 0-5, gt 6-9:
-// 19 KB of shared memory instead of 64 KB). Each product is one fixed
-// left-to-right chain of separately rounded multiplies and adds over exactly
-// those rows -- the chain the plain twin (ops/cuda_intersect._matmul_pairs)
-// evaluates -- so kernel and twin agree bit for bit. The products are computed
-// in this body; no library GEMM is called.
-//
-// What bounds it: ~54 FP32 operations per pair (34 in the products), no
-// device-memory traffic beyond one 19 KB tile per worklist entry; as K1,
-// bound by FP32 throughput. Tensor cores (a 3xTF32 split to keep float32 accuracy)
-// are later work.
-#define G_ROWS 19
-
-struct FeatTile {
-  float g[G_ROWS][TILE_T];  // ga0-2 | gu0-5 | gv0-5 | gt6-9
-};
-
-__device__ __forceinline__ void stage_features(FeatTile& s,
-                                               const float* __restrict__ G,
-                                               long Tp, int j) {
-  const long t = (long)j * TILE_T + threadIdx.x;
-  for (int k = 0; k < 3; ++k) s.g[k][threadIdx.x] = G[(0 * 16 + k) * Tp + t];
-  for (int k = 0; k < 6; ++k) {
-    s.g[3 + k][threadIdx.x] = G[(1 * 16 + k) * Tp + t];
-    s.g[9 + k][threadIdx.x] = G[(2 * 16 + k) * Tp + t];
-  }
-  for (int k = 0; k < 4; ++k)
-    s.g[15 + k][threadIdx.x] = G[(3 * 16 + 6 + k) * Tp + t];
-}
-
-template <bool WANT_IDX>
-__global__ void __launch_bounds__(TILE_R)
-    matmul_sweep_kernel(const float* __restrict__ F, int Rp,
-                        const float* __restrict__ G, int Tp,
-                        const int* __restrict__ order,
-                        const int* __restrict__ count, int nT, float mt_eps,
-                        float self_hit_eps, float* __restrict__ dist_out,
-                        int* __restrict__ idx_out) {
-  __shared__ FeatTile s;
-  const int rt = blockIdx.x;
-  const int r = rt * TILE_R + threadIdx.x;
-  float f[14];  // rows 0-13 of this ray's feature column
-  for (int k = 0; k < 14; ++k) f[k] = F[(long)k * Rp + r];
-  float best = CUDART_INF_F;
-  int best_idx = 0;
-  const int n = count[rt];
-  for (int k = 0; k < n; ++k) {
-    const int j = order[(long)rt * nT + k];
-    __syncthreads();
-    stage_features(s, G, Tp, j);
-    __syncthreads();
-    for (int i = 0; i < TILE_T; ++i) {
-      const float a = (s.g[0][i] * f[0] + s.g[1][i] * f[1]) + s.g[2][i] * f[2];
-      if (!(fabsf(a) >= mt_eps)) continue;
-      const float inv = 1.0f / a;
-      const float un =
-          ((((s.g[3][i] * f[0] + s.g[4][i] * f[1]) + s.g[5][i] * f[2]) +
-            s.g[6][i] * f[3]) + s.g[7][i] * f[4]) + s.g[8][i] * f[5];
-      const float u = un * inv;
-      if (!(u >= 0.0f && u <= 1.0f)) continue;
-      const float vn =
-          ((((s.g[9][i] * f[0] + s.g[10][i] * f[1]) + s.g[11][i] * f[2]) +
-            s.g[12][i] * f[3]) + s.g[13][i] * f[4]) + s.g[14][i] * f[5];
-      const float v = vn * inv;
-      if (!(v >= 0.0f && u + v <= 1.0f)) continue;
-      const float tn = ((s.g[15][i] * f[6] + s.g[16][i] * f[7]) +
-                        s.g[17][i] * f[8]) + s.g[18][i] * f[9];
-      const float t = tn * inv;
-      if (!(t > mt_eps)) continue;
-      const float td = t * f[10];
-      float dist;
-      if (WANT_IDX) {  // reference distance from the recentred origin
-        const float ddx = (f[6] + f[11] * td) - f[6];
-        const float ddy = (f[7] + f[12] * td) - f[7];
-        const float ddz = (f[8] + f[13] * td) - f[8];
-        dist = sqrtf((ddx * ddx + ddy * ddy) + ddz * ddz);
-      } else {
-        dist = td;
-      }
-      if (dist > self_hit_eps && dist < best) {
-        best = dist;
-        if (WANT_IDX) best_idx = j * TILE_T + i;
-      }
-    }
-  }
-  dist_out[r] = best;
-  if (WANT_IDX) idx_out[r] = best_idx;
-}
-
 // Resident blocks of a persistent sweep on the current device.
-template <bool WANT_IDX>
+template <int KIND>
 int sweep_resident_blocks() {
   static int blocks = 0;
   if (!blocks) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sweep_kernel<WANT_IDX>, TILE_R, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_kernel<KIND>,
+                                                  TILE_R, 0);
     blocks = sms * per_sm;
   }
   return blocks;
 }
 
-template <bool WANT_IDX, typename T>
+// One sweep: zero the queue's two counters, list (and set every ray's result
+// to `miss`), then the persistent kernel, all on stream `st`. `work` is
+// scratch of 2 + nT * (Rp / 256) ints, and 2 * (Rp / 256) more for K4.
+template <int KIND, typename T>
 int launch_sweep(const float* op, const float* dp, int Rp, const float* v0,
                  const float* e1, const float* e2, const int* mask, int nT,
                  float mt_eps, float self_hit_eps, T* out, T miss, int* work,
                  cudaStream_t st) {
-  unsigned long long* key = WANT_IDX ? (unsigned long long*)out : nullptr;
-  unsigned int* bits = WANT_IDX ? nullptr : (unsigned int*)out;
-  const int n_pairs = nT * (Rp / TILE_R);
+  const int nR = Rp / TILE_R, n_pairs = nT * nR;
   const int n = Rp > n_pairs ? Rp : n_pairs;
+  int* live = KIND == ANY_HIT ? work + 2 + n_pairs : nullptr;
+  int* walked = KIND == ANY_HIT ? live + nR : nullptr;
   cudaMemsetAsync(work, 0, 2 * sizeof(int), st);
-  sweep_list_kernel<<<(n + 255) / 256, 256, 0, st>>>(out, miss, Rp, mask,
-                                                     n_pairs, work);
+  sweep_list_kernel<T><<<(n + TILE_R - 1) / TILE_R, TILE_R, 0, st>>>(
+      out, miss, Rp, mask, n_pairs, work, op, live, walked);
   if (nT > 0)
-    sweep_kernel<WANT_IDX><<<sweep_resident_blocks<WANT_IDX>(), TILE_R, 0,
-                             st>>>(op, dp, Rp, v0, e1, e2, work, mt_eps,
-                                   self_hit_eps, key, bits);
+    sweep_kernel<KIND><<<sweep_resident_blocks<KIND>(), TILE_R, 0, st>>>(
+        op, dp, Rp, v0, e1, e2, work, mt_eps, self_hit_eps, out, live, walked);
   return (int)cudaGetLastError();
 }
 
@@ -503,24 +598,25 @@ int launch_sweep(const float* op, const float* dp, int Rp, const float* v0,
 
 extern "C" {
 
-// `work` is scratch of 2 + nT * (Rp / 256) ints.
-int rgt_nearest_hit(const float* op, const float* dp, int Rp, const float* v0,
-                    const float* e1, const float* e2, const int* mask, int nT,
-                    float mt_eps, float self_hit_eps, unsigned long long* key,
-                    int* work, void* stream) {
-  return launch_sweep<true>(op, dp, Rp, v0, e1, e2, mask, nT, mt_eps,
-                            self_hit_eps, key, (unsigned long long)KEY_MISS,
-                            work, (cudaStream_t)stream);
-}
+// The five sweeps share one signature: packed rays (3, Rp), triangles
+// (Tp, 3) x 3 with Tp = 256 nT, the (nT, Rp / 256) pair-tile mask, the two
+// epsilons, one result per ray and the queue's scratch (see launch_sweep).
+#define RGT_SWEEP(name, KIND, T, miss)                                        \
+  int name(const float* op, const float* dp, int Rp, const float* v0,         \
+           const float* e1, const float* e2, const int* mask, int nT,         \
+           float mt_eps, float self_hit_eps, T* out, int* work,               \
+           void* stream) {                                                    \
+    return launch_sweep<KIND>(op, dp, Rp, v0, e1, e2, mask, nT, mt_eps,       \
+                              self_hit_eps, out, (T)(miss), work,             \
+                              (cudaStream_t)stream);                          \
+  }
 
-int rgt_nearest_dist(const float* op, const float* dp, int Rp, const float* v0,
-                     const float* e1, const float* e2, const int* mask, int nT,
-                     float mt_eps, float self_hit_eps, unsigned int* bits,
-                     int* work, void* stream) {
-  return launch_sweep<false>(op, dp, Rp, v0, e1, e2, mask, nT, mt_eps,
-                             self_hit_eps, bits, (unsigned int)BITS_MISS, work,
-                             (cudaStream_t)stream);
-}
+RGT_SWEEP(rgt_nearest_hit, NEAREST_HIT, unsigned long long, KEY_MISS)
+RGT_SWEEP(rgt_nearest_dist, NEAREST_DIST, unsigned int, BITS_MISS)
+RGT_SWEEP(rgt_any_hit, ANY_HIT, unsigned char, 0)
+// rays and v0 recentred on the live rays' centroid by the caller
+RGT_SWEEP(rgt_nearest_hit_matmul, MATMUL_HIT, unsigned long long, KEY_MISS)
+RGT_SWEEP(rgt_nearest_dist_matmul, MATMUL_DIST, unsigned int, BITS_MISS)
 
 // C is 24 or 32 (the wrapper checks); idx is read with a stride in elements.
 int rgt_fetch_rows(const float* table, int Tp, int C, const int* idx,
@@ -535,34 +631,6 @@ int rgt_fetch_rows(const float* table, int Tp, int C, const int* idx,
         (const float4*)table, Tp, idx, idx_stride, n, (float4*)out);
   else
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
-}
-
-int rgt_any_hit(const float* op, const float* dp, int Rp, const float* v0,
-                const float* e1, const float* e2, const int* order,
-                const int* count, int nT, float mt_eps, float self_hit_eps,
-                unsigned char* occ, int* walked, void* stream) {
-  any_hit_kernel<<<Rp / TILE_R, TILE_R, 0, (cudaStream_t)stream>>>(
-      op, dp, Rp, v0, e1, e2, order, count, nT, mt_eps, self_hit_eps, occ,
-      walked);
-  return (int)cudaGetLastError();
-}
-
-int rgt_nearest_hit_matmul(const float* F, int Rp, const float* G, int Tp,
-                           const int* order, const int* count, int nT,
-                           float mt_eps, float self_hit_eps, float* dist,
-                           int* idx, void* stream) {
-  matmul_sweep_kernel<true><<<Rp / TILE_R, TILE_R, 0, (cudaStream_t)stream>>>(
-      F, Rp, G, Tp, order, count, nT, mt_eps, self_hit_eps, dist, idx);
-  return (int)cudaGetLastError();
-}
-
-int rgt_nearest_dist_matmul(const float* F, int Rp, const float* G, int Tp,
-                            const int* order, const int* count, int nT,
-                            float mt_eps, float self_hit_eps, float* dist,
-                            void* stream) {
-  matmul_sweep_kernel<false><<<Rp / TILE_R, TILE_R, 0, (cudaStream_t)stream>>>(
-      F, Rp, G, Tp, order, count, nT, mt_eps, self_hit_eps, dist, nullptr);
   return (int)cudaGetLastError();
 }
 

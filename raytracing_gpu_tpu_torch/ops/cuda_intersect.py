@@ -14,15 +14,18 @@ The counterpart of the JAX package's `ops/pallas_intersect.py`:
   `nearest_hit_matmul` (K5) and `nearest_dist_matmul` (K6) launch the
   kernels of `csrc/intersect.cu` on CUDA tensors. On CPU tensors they run
   their plain versions, so every step around the kernels runs in the CPU
-  tests; on a CUDA tensor a wrapper launches its kernel or raises. K1/K2
-  read the pair-tile mask themselves, spread the kept pair tiles over the
-  whole card and combine the pieces by the minimum of `sweep_key`; K4-K6
-  walk an ordered `tile_worklist` per ray tile;
+  tests; on a CUDA tensor a wrapper launches its kernel or raises. The five
+  sweeps read the pair-tile mask themselves and spread the kept pair tiles
+  over the whole card in units of 64 triangles; K1/K2 and K5/K6 combine the
+  units by the minimum of `sweep_key`, K4 by an OR (`tile_worklist`, the
+  JAX package's ordered list, is on no launch path);
 - `nearest_hit_front_to_back` is the two-round composite over K1 (nearest
   triangle tiles first, then only those a hit so far cannot rule out);
-- `ray_features` / `pack_tri_features` pack rays and triangles for the
+- `ray_features` / `pack_tri_features` state the features of the
   matmul-form sweeps K5/K6, which compute the four Möller–Trumbore
-  determinants as dot products of 16 features.
+  determinants as dot products of 16 features. The kernels build the same
+  features themselves from the recentred rays and triangles; the plain
+  versions go through these two functions.
 
 Every integer result (perm, masks, worklists, winner slots) equals the JAX
 package's. The distances equal the JAX package's eager (op-by-op)
@@ -192,8 +195,9 @@ def pack_geometry(vertices, valid, normals=None, tri_obj=None,
             body = torch.cat([body, body.new_zeros((Tp - T, body.shape[1]))])
         table = torch.cat([v0, e1, e2, body], 1)
         table = torch.cat([table, table.new_zeros((Tp, width - table.shape[1]))], 1)
-    return KernelPack(perm, tile_aabb, tile_nonempty, v0, e1, e2,
-                      None if table is None else table.contiguous())
+    if table is not None:
+        table = check_winner_table(table.contiguous())
+    return KernelPack(perm, tile_aabb, tile_nonempty, v0, e1, e2, table)
 
 
 # ---------------------------------------------------------------------------
@@ -561,21 +565,29 @@ def _matmul_pairs(f, g, mt_eps, self_hit_eps, ref_dist: bool):
     return torch.where(ok, dist, INF)
 
 
-def _matmul_sweep(rayf, g, tile_mask, mt_eps, self_hit_eps, fold):
+def _matmul_sweep(oc, dp, v0c, e1, e2, tile_mask, mt_eps, self_hit_eps, fold):
+    rayf = ray_features(oc, dp)
+    g = pack_tri_features(v0c, e1, e2)
+
     def pair_dist(r0, r1):
         return _matmul_pairs(rayf[:, r0:r1], g, mt_eps, self_hit_eps,
                              ref_dist=fold == "argmin")
-    return _plain_sweep(pair_dist, rayf.shape[1], g.shape[2], tile_mask, fold)
+    return _plain_sweep(pair_dist, oc.shape[1], v0c.shape[0], tile_mask, fold)
 
 
-def nearest_hit_matmul_plain(rayf, g, tile_mask, mt_eps, self_hit_eps):
-    """Plain version of K5: (dist (Rp,), idx (Rp,) int32) as K1's."""
-    return _matmul_sweep(rayf, g, tile_mask, mt_eps, self_hit_eps, "argmin")
+def nearest_hit_matmul_plain(oc, dp, v0c, e1, e2, tile_mask, mt_eps,
+                             self_hit_eps):
+    """Plain version of K5: (dist (Rp,), idx (Rp,) int32) as K1's, from the
+    features of recentred rays and triangles."""
+    return _matmul_sweep(oc, dp, v0c, e1, e2, tile_mask, mt_eps, self_hit_eps,
+                         "argmin")
 
 
-def nearest_dist_matmul_plain(rayf, g, tile_mask, mt_eps, self_hit_eps):
+def nearest_dist_matmul_plain(oc, dp, v0c, e1, e2, tile_mask, mt_eps,
+                              self_hit_eps):
     """Plain version of K6: the masked minimum of t*|d| per ray."""
-    return _matmul_sweep(rayf, g, tile_mask, mt_eps, self_hit_eps, "min")
+    return _matmul_sweep(oc, dp, v0c, e1, e2, tile_mask, mt_eps, self_hit_eps,
+                         "min")
 
 
 # ---------------------------------------------------------------------------
@@ -587,33 +599,32 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
+# the five sweeps share one C signature; the result's dtype and the extra
+# scratch ints per ray tile differ
+_SWEEP_OUT = {"nearest_hit": (torch.int64, 0), "nearest_dist": (torch.float32, 0),
+              "any_hit": (torch.bool, 2), "nearest_hit_matmul": (torch.int64, 0),
+              "nearest_dist_matmul": (torch.float32, 0)}
+
+
 @functools.cache
-def _lib():
-    """The kernels' library, built from csrc/ at first use and loaded."""
+def _kernels() -> dict:
+    """The kernels' entry points by wrapper name, each bound once to its
+    ctypes prototype; the library is built from csrc/ at first use."""
     from raytracing_gpu_tpu_torch.csrc.build import library_path
 
     lib = ctypes.CDLL(str(library_path()))
-    rays_tris = [_P, _P, _I, _P, _P, _P]
-    # K1/K2 read the pair-tile mask; K4 an ordered worklist
-    lib.rgt_nearest_hit.argtypes = rays_tris + [_P, _I, _F, _F, _P, _P, _P]
-    lib.rgt_nearest_dist.argtypes = rays_tris + [_P, _I, _F, _F, _P, _P, _P]
-    lib.rgt_any_hit.argtypes = rays_tris + [_P, _P, _I, _F, _F, _P, _P, _P]
-    lib.rgt_fetch_rows.argtypes = [_P, _I, _I, _P, _I, _I, _P, _P]
-    matmul = [_P, _I, _P, _I, _P, _P, _I, _F, _F, _P]
-    lib.rgt_nearest_hit_matmul.argtypes = matmul + [_P, _P]
-    lib.rgt_nearest_dist_matmul.argtypes = matmul + [_P]
-    for fn in (lib.rgt_nearest_hit, lib.rgt_nearest_dist, lib.rgt_fetch_rows,
-               lib.rgt_any_hit, lib.rgt_nearest_hit_matmul,
-               lib.rgt_nearest_dist_matmul):
-        fn.restype = _I
-    lib.rgt_error_string.argtypes = [_I]
-    lib.rgt_error_string.restype = ctypes.c_char_p
-    return lib
+    sweep = ctypes.CFUNCTYPE(_I, _P, _P, _I, _P, _P, _P, _P, _I, _F, _F, _P, _P, _P)
+    fns = {name: sweep((f"rgt_{name}", lib)) for name in _SWEEP_OUT}
+    fns["fetch_rows"] = ctypes.CFUNCTYPE(_I, _P, _I, _I, _P, _I, _I, _P, _P)(
+        ("rgt_fetch_rows", lib))
+    fns["error_string"] = ctypes.CFUNCTYPE(ctypes.c_char_p, _I)(
+        ("rgt_error_string", lib))
+    return fns
 
 
 def build_kernels() -> None:
     """Build (or reuse) and load the kernels' library now."""
-    _lib()
+    _kernels()
 
 
 def _on_cpu(*tensors) -> bool:
@@ -640,21 +651,24 @@ def _require(t, name, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
+# torch's raw getter skips building a `torch.cuda.Stream` object, which costs
+# several microseconds per call; without it the public call serves
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _stream(dev) -> int:
     """Handle of the current CUDA stream on `dev`, asked anew at every launch
-    (a graph capture or a stream context changes it). torch's raw getter
-    skips building a `torch.cuda.Stream` object, which costs several
-    microseconds per call; without it the public call serves."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is None:
+    (a graph capture or a stream context changes it)."""
+    if _RAW_STREAM is None:
         return torch.cuda.current_stream(dev).cuda_stream
-    return raw(torch.cuda.current_device() if dev.index is None else dev.index)
+    return _RAW_STREAM(torch.cuda.current_device() if dev.index is None
+                       else dev.index)
 
 
 def _check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what} launch failed: "
-                           f"{_lib().rgt_error_string(code).decode()} ({code})")
+                           f"{_kernels()['error_string'](code).decode()} ({code})")
 
 
 def _tile_counts(tile_mask, Rp: int, Tp: int) -> tuple[int, int]:
@@ -670,13 +684,6 @@ def _tile_counts(tile_mask, Rp: int, Tp: int) -> tuple[int, int]:
     return nR, nT
 
 
-def _ray_worklist(tile_mask, Rp: int, Tp: int):
-    """Checked (order, count) of a (Tp/256, Rp/256) tile mask: per ray tile,
-    its surviving triangle tiles in ascending order."""
-    _tile_counts(tile_mask, Rp, Tp)
-    return tuple(t.contiguous() for t in tile_worklist(tile_mask.t()))
-
-
 def _require_rays_tris(op, dp, v0, e1, e2) -> tuple[int, int]:
     Rp, Tp = op.shape[1], v0.shape[0]
     for what, t, shape in (("op", op, (3, Rp)), ("dp", dp, (3, Rp)),
@@ -687,9 +694,9 @@ def _require_rays_tris(op, dp, v0, e1, e2) -> tuple[int, int]:
 
 
 def _require_key_order(self_hit_eps) -> None:
-    """K1/K2 combine their blocks by the integer order of the distances'
-    bits, which holds for positive floats only: every accepted distance
-    exceeds self_hit_eps, so that must not be negative."""
+    """K1/K2 and K5/K6 combine their units by the integer order of the
+    distances' bits, which holds for positive floats only: every accepted
+    distance exceeds self_hit_eps, so that must not be negative."""
     if self_hit_eps < 0:
         raise ValueError(f"self_hit_eps must be >= 0, got {self_hit_eps}")
 
@@ -704,66 +711,27 @@ def key_halves(key):
 
 def _launch_sweep(name: str, op, dp, v0, e1, e2, tile_mask, mt_eps,
                   self_hit_eps):
-    """Launch K1 ("nearest_hit") or K2 ("nearest_dist") on the pair-tile
-    mask itself: (dist, idx or None). K1 writes one int64 key per ray
-    (`sweep_key`) and returns its `key_halves`."""
+    """Launch one of the five sweeps (a key of `_SWEEP_OUT`) on the
+    pair-tile mask itself: (one result per ray -- int64 keys of `sweep_key`,
+    float32 distances or bools -- and the queue's scratch, whose last
+    2 * Rp/256 ints are K4's live and walked counts)."""
     Rp, Tp = _require_rays_tris(op, dp, v0, e1, e2)
     nR, nT = _tile_counts(tile_mask, Rp, Tp)
     _require(tile_mask, "tile_mask", torch.int32, (nT, nR))
-    want_idx = name == "nearest_hit"
+    dtype, per_ray_tile = _SWEEP_OUT[name]
     dev = op.device
-    out = torch.empty((Rp,), dtype=torch.int64 if want_idx else torch.float32,
-                      device=dev)
+    out = torch.empty((Rp,), dtype=dtype, device=dev)
+    # its own allocation, so that a result does not keep the scratch alive
+    work = torch.empty((2 + (nT + per_ray_tile) * nR,), dtype=torch.int32,
+                       device=dev)
     if Rp:
-        # the kernel's queue of kept pair tiles, freed when this call returns
-        work = torch.empty((2 + nT * nR,), dtype=torch.int32, device=dev)
-        _check(getattr(_lib(), "rgt_" + name)(
+        _check(_kernels()[name](
             op.data_ptr(), dp.data_ptr(), Rp, v0.data_ptr(), e1.data_ptr(),
             e2.data_ptr(), tile_mask.data_ptr(), nT, f32(mt_eps),
             f32(self_hit_eps), out.data_ptr(), work.data_ptr(),
             _stream(dev)), name)
         LAUNCHES[name] += 1
-    return key_halves(out) if want_idx else (out, None)
-
-
-def _launch_any_hit(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
-    """Launch K4: (occluded (Rp,) bool, walked (Rp/256,) int32)."""
-    Rp, Tp = _require_rays_tris(op, dp, v0, e1, e2)
-    order, count = _ray_worklist(tile_mask, Rp, Tp)
-    occ = torch.empty((Rp,), dtype=torch.bool, device=op.device)
-    walked = torch.empty((Rp // TILE_R,), dtype=torch.int32, device=op.device)
-    if Rp == 0:
-        return occ, walked
-    _check(_lib().rgt_any_hit(
-        op.data_ptr(), dp.data_ptr(), Rp, v0.data_ptr(), e1.data_ptr(),
-        e2.data_ptr(), order.data_ptr(), count.data_ptr(), Tp // TILE_T,
-        f32(mt_eps), f32(self_hit_eps), occ.data_ptr(), walked.data_ptr(),
-        _stream(op.device)), "any_hit")
-    LAUNCHES["any_hit"] += 1
-    return occ, walked
-
-
-def _launch_matmul_sweep(name: str, rayf, g, tile_mask, mt_eps, self_hit_eps):
-    """Launch K5 ("nearest_hit_matmul") or K6 ("nearest_dist_matmul")."""
-    Rp, Tp = rayf.shape[1], g.shape[2]
-    _require(rayf, "rayf", torch.float32, (N_FEATURES, Rp))
-    _require(g, "g", torch.float32, (4, N_FEATURES, Tp))
-    order, count = _ray_worklist(tile_mask, Rp, Tp)
-    dev = rayf.device
-    dist = torch.empty((Rp,), dtype=torch.float32, device=dev)
-    idx = (torch.empty((Rp,), dtype=torch.int32, device=dev)
-           if name == "nearest_hit_matmul" else None)
-    if Rp == 0:
-        return dist, idx
-    args = [rayf.data_ptr(), Rp, g.data_ptr(), Tp, order.data_ptr(),
-            count.data_ptr(), Tp // TILE_T, f32(mt_eps), f32(self_hit_eps),
-            dist.data_ptr()]
-    if idx is not None:
-        args.append(idx.data_ptr())
-    _check(getattr(_lib(), "rgt_" + name)(
-        *args, _stream(dev)), name)
-    LAUNCHES[name] += 1
-    return dist, idx
+    return out, work
 
 
 def nearest_hit(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
@@ -779,8 +747,8 @@ def nearest_hit(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
     _require_key_order(self_hit_eps)
     if _on_cpu(op, dp, v0, e1, e2, tile_mask):
         return nearest_hit_plain(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps)
-    return _launch_sweep("nearest_hit", op, dp, v0, e1, e2, tile_mask, mt_eps,
-                         self_hit_eps)
+    return key_halves(_launch_sweep("nearest_hit", op, dp, v0, e1, e2,
+                                    tile_mask, mt_eps, self_hit_eps)[0])
 
 
 def nearest_dist(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
@@ -796,43 +764,55 @@ def nearest_dist(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
 
 def any_hit_walked(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
     """K4 with its work count: (occluded (Rp,) bool, walked (Rp/256,) int32
-    -- the triangle tiles each ray tile scanned before every live lane was
-    occluded or its worklist ended). CUDA tensors only."""
+    -- the units (a kept pair tile's 64-triangle quarters) of each ray tile
+    that were scanned; the rest were dropped because every live lane of the
+    ray tile was occluded by then). walked depends on how the blocks overlap
+    in time: it is at most 4 x the ray tile's kept pair tiles and differs
+    from run to run, the answer does not. CUDA tensors only."""
     if _on_cpu(op, dp, v0, e1, e2, tile_mask):
         raise ValueError("any_hit_walked reports the kernel's work: CUDA "
                          "tensors only")
-    return _launch_any_hit(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps)
+    occ, work = _launch_sweep("any_hit", op, dp, v0, e1, e2, tile_mask, mt_eps,
+                              self_hit_eps)
+    return occ, work[work.shape[0] - op.shape[1] // TILE_R:]
 
 
 def any_hit(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
     """K4: (Rp,) bool, the ray has some accepted hit over the pair tiles
-    tile_mask keeps -- exactly `nearest_dist(...) < inf`, without the minimum,
-    and a ray tile stops walking once every live lane is occluded. Dead rays
-    (parked or padding, |origin| >= 1e20) report False. Replaces
-    any_hit_pallas."""
+    tile_mask keeps -- exactly `nearest_dist(...) < inf`, without the minimum:
+    a ray stops at its first hit, and the rest of a ray tile's work is
+    dropped once every live lane is occluded. Dead rays (parked or padding,
+    |origin| >= 1e20) report False. Replaces any_hit_pallas."""
     if _on_cpu(op, dp, v0, e1, e2, tile_mask):
         return any_hit_plain(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps)
-    return any_hit_walked(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps)[0]
+    return _launch_sweep("any_hit", op, dp, v0, e1, e2, tile_mask, mt_eps,
+                         self_hit_eps)[0]
 
 
-def nearest_hit_matmul(rayf, g, tile_mask, mt_eps, self_hit_eps):
-    """K5: K1's result from the matmul form. rayf (16,Rp) from ray_features
-    (of recentred rays), g (4,16,Tp) from pack_tri_features, tile_mask as
-    K1's. Returns (dist (Rp,) from the recentred origin, +inf on a miss; idx
-    (Rp,) int32 clustered slot). Replaces nearest_hit_mxu."""
-    if _on_cpu(rayf, g, tile_mask):
-        return nearest_hit_matmul_plain(rayf, g, tile_mask, mt_eps, self_hit_eps)
-    return _launch_matmul_sweep("nearest_hit_matmul", rayf, g, tile_mask,
-                                mt_eps, self_hit_eps)
+def nearest_hit_matmul(oc, dp, v0c, e1, e2, tile_mask, mt_eps, self_hit_eps):
+    """K5: K1's result from the matmul form. Takes what K1 takes, with the
+    rays' origins oc (3,Rp) and the triangles' v0c (Tp,3) recentred on the
+    live rays' centroid (`live_centroid`); the features of `ray_features`
+    and `pack_tri_features` are built inside the kernel. Returns (dist (Rp,)
+    from the recentred origin, +inf on a miss; idx (Rp,) int32 clustered
+    slot), on the card as `key_halves` like K1's. Replaces nearest_hit_mxu."""
+    _require_key_order(self_hit_eps)
+    if _on_cpu(oc, dp, v0c, e1, e2, tile_mask):
+        return nearest_hit_matmul_plain(oc, dp, v0c, e1, e2, tile_mask, mt_eps,
+                                        self_hit_eps)
+    return key_halves(_launch_sweep("nearest_hit_matmul", oc, dp, v0c, e1, e2,
+                                    tile_mask, mt_eps, self_hit_eps)[0])
 
 
-def nearest_dist_matmul(rayf, g, tile_mask, mt_eps, self_hit_eps):
+def nearest_dist_matmul(oc, dp, v0c, e1, e2, tile_mask, mt_eps, self_hit_eps):
     """K6: minimum accepted t*|d| per ray from the matmul form ((Rp,), +inf
-    on a miss). Replaces nearest_dist_mxu."""
-    if _on_cpu(rayf, g, tile_mask):
-        return nearest_dist_matmul_plain(rayf, g, tile_mask, mt_eps, self_hit_eps)
-    return _launch_matmul_sweep("nearest_dist_matmul", rayf, g, tile_mask,
-                                mt_eps, self_hit_eps)[0]
+    on a miss); arguments as K5's. Replaces nearest_dist_mxu."""
+    _require_key_order(self_hit_eps)
+    if _on_cpu(oc, dp, v0c, e1, e2, tile_mask):
+        return nearest_dist_matmul_plain(oc, dp, v0c, e1, e2, tile_mask, mt_eps,
+                                         self_hit_eps)
+    return _launch_sweep("nearest_dist_matmul", oc, dp, v0c, e1, e2, tile_mask,
+                         mt_eps, self_hit_eps)[0]
 
 
 def nearest_hit_front_to_back(op, dp, pack: KernelPack, tile_mask, mt_eps,
@@ -862,33 +842,49 @@ def nearest_hit_front_to_back(op, dp, pack: KernelPack, tile_mask, mt_eps,
     return torch.where(better, dist_b, dist_a), torch.where(better, idx_b, idx_a)
 
 
+def check_winner_table(table):
+    """Raise unless `table` is a winner table `fetch_rows` takes: 2-D, 24 or
+    32 floats wide and, on the card, float32, contiguous, 16-byte aligned
+    and under 2**31 elements (the kernel moves 16-byte pieces with 32-bit
+    offsets). Made once, where the table is made (`pack_geometry`): the
+    table is marked, and `fetch_rows` checks only a table it has not seen."""
+    if table.dim() != 2 or table.shape[1] not in (TABLE_WIDTH_NOMAT,
+                                                  TABLE_WIDTH_MAT):
+        raise ValueError(f"a winner table is 2-D with rows {TABLE_WIDTH_NOMAT} "
+                         f"or {TABLE_WIDTH_MAT} floats wide, got "
+                         f"{tuple(table.shape)}")
+    if table.is_cuda:
+        if table.dtype != torch.float32:
+            raise TypeError(f"a winner table is float32, got {table.dtype}")
+        if (not table.is_contiguous() or table.data_ptr() % 16
+                or table.numel() >= 1 << 31):
+            raise ValueError("a winner table must be contiguous, 16-byte "
+                             "aligned and under 2**31 elements")
+    table.winner_table_checked = True
+    return table
+
+
 def fetch_rows(table, idx):
     """K3: rows = table[idx] for a (Tp, 24|32) float32 winner table and (n,)
     int32 slots (any stride); a slot outside the table gives a NaN row on
     the card. Replaces the fetch kernels of _fetch_rows_impl."""
-    if table.dim() != 2 or idx.dim() != 1:
-        raise ValueError(f"fetch_rows: table must be 2-D and idx 1-D, got "
-                         f"{tuple(table.shape)} and {tuple(idx.shape)}")
-    Tp, C = table.shape
-    if C not in (TABLE_WIDTH_NOMAT, TABLE_WIDTH_MAT):
-        raise ValueError(f"fetch_rows: a winner row is {TABLE_WIDTH_NOMAT} or "
-                         f"{TABLE_WIDTH_MAT} floats wide, got {C}")
-    if _on_cpu(table, idx):
+    if not getattr(table, "winner_table_checked", False):
+        check_winner_table(table)
+    if idx.dim() != 1:
+        raise ValueError(f"fetch_rows: idx must be 1-D, got {tuple(idx.shape)}")
+    if not table.is_cuda or idx.device != table.device:
+        _on_cpu(table, idx)  # raises unless both are on the CPU
         return fetch_rows_plain(table, idx)
+    if idx.dtype != torch.int32:
+        raise TypeError(f"fetch_rows: expected int32 slots, got {idx.dtype}")
     n = idx.shape[0]
-    if table.dtype != torch.float32 or idx.dtype != torch.int32:
-        raise TypeError(f"fetch_rows: expected a float32 table and int32 "
-                        f"slots, got {table.dtype} and {idx.dtype}")
-    # the kernel moves 16-byte pieces with 32-bit offsets
-    if (not table.is_contiguous() or table.data_ptr() % 16
-            or max(Tp, n) * C >= 1 << 31):
-        raise ValueError("fetch_rows: the table must be contiguous, 16-byte "
-                         "aligned and, like the result, under 2**31 elements")
+    Tp, C = table.shape
+    if n * C >= 1 << 31:
+        raise ValueError("fetch_rows: the result must stay under 2**31 elements")
     out = torch.empty((n, C), dtype=torch.float32, device=table.device)
     if n:
-        _check(_lib().rgt_fetch_rows(
+        _check(_kernels()["fetch_rows"](
             table.data_ptr(), Tp, C, idx.data_ptr(), idx.stride(0), n,
-            out.data_ptr(),
-            _stream(table.device)), "fetch_rows")
+            out.data_ptr(), _stream(table.device)), "fetch_rows")
         LAUNCHES["fetch_rows"] += 1
     return out

@@ -99,24 +99,25 @@ def _dir_length(dirs):
 def _kernel_sweep(origins, dirs, pack, mt_eps, self_hit_eps, backend,
                   partitioning, want_idx: bool, f2b_tiles: int = 0):
     """Pack and cull a ray batch and sweep it on a kernel backend: (dist
-    (Rp,) +inf on a miss, idx (Rp,) int32 clustered slots or None). K1's
-    pair on the card has stride 2 (`ck.key_halves`), the matmul backend's is
+    (Rp,) +inf on a miss, idx (Rp,) int32 clustered slots or None). On the
+    card K1's and K5's pair has stride 2 (`ck.key_halves`), on the CPU it is
     contiguous: callers slice, test and pass them to `ck.fetch_rows`, which
     hold for either."""
     op, dp, _ = ck.pack_rays(origins, dirs)
     if backend == "cuda_matmul":
         # Möller–Trumbore is translation invariant, and the expanded triple
         # products cancel badly when |o| is large against the local geometry:
-        # recentre rays, boxes and triangles on the live rays' centroid
+        # recentre rays, boxes and triangles on the live rays' centroid. The
+        # sweeps build their features from these themselves.
         c = ck.live_centroid(origins)
         oc = op - c[:, None]
         tmask = ck.tile_cull_mask_hierarchical(
             oc, dp, pack._replace(tile_aabb=pack.tile_aabb - c), partitioning)
-        rayf = ck.ray_features(oc, dp)
-        g = ck.pack_tri_features(pack.v0 - c, pack.e1, pack.e2)
+        sweep = (oc, dp, pack.v0 - c, pack.e1, pack.e2, tmask, mt_eps,
+                 self_hit_eps)
         if want_idx:
-            return ck.nearest_hit_matmul(rayf, g, tmask, mt_eps, self_hit_eps)
-        return ck.nearest_dist_matmul(rayf, g, tmask, mt_eps, self_hit_eps), None
+            return ck.nearest_hit_matmul(*sweep)
+        return ck.nearest_dist_matmul(*sweep), None
     tmask = ck.tile_cull_mask_hierarchical(op, dp, pack, partitioning)
     sweep = (op, dp, pack.v0, pack.e1, pack.e2, tmask, mt_eps, self_hit_eps)
     if not want_idx:

@@ -298,9 +298,7 @@ def test_cuda_kernels_match_plain(cuda_device):
     assert bool(torch.isnan(ck.fetch_rows(g24, outside)).all())
     assert torch.equal(ck.any_hit(*args), ck.any_hit_plain(*args))
     c = ck.live_centroid(op.t()[:R])
-    rayf = ck.ray_features(op - c[:, None], dp)
-    feats = ck.pack_tri_features(pack.v0 - c, pack.e1, pack.e2)
-    margs = (rayf, feats, mask, *EPS)
+    margs = (op - c[:, None], dp, pack.v0 - c, pack.e1, pack.e2, mask, *EPS)
     md, mi = ck.nearest_hit_matmul(*margs)
     qd, qi = ck.nearest_hit_matmul_plain(*margs)
     assert torch.equal(mi, qi)

@@ -125,8 +125,9 @@ def test_parked_rays_do_not_move_the_centroid():
 
 
 def test_plain_matmul_kernels_match_pallas(scenes):
-    """Same recentred features, same mask, through the Pallas kernels in
-    interpret mode and through the plain versions of K5 and K6."""
+    """Same recentred rays and triangles, same mask: their features through
+    the Pallas kernels in interpret mode, and the plain versions of K5 and
+    K6, which build the same features themselves."""
     _, jpack, _, tpack = scenes
     o, d = _rays(3)
     c = ck.live_centroid(torch.from_numpy(o))
@@ -139,7 +140,8 @@ def test_plain_matmul_kernels_match_pallas(scenes):
     jf, jg, jm = (jnp.asarray(x.numpy()) for x in (rayf, g, tm))
     jd, ji = (np.asarray(x) for x in pk.nearest_hit_mxu(jf, jg, jm, *EPS))
     before = dict(ck.LAUNCHES)
-    td, ti = ck.nearest_hit_matmul(rayf, g, tm, *EPS)
+    sweep = (oc, tdp, tpack.v0 - c, tpack.e1, tpack.e2, tm, *EPS)
+    td, ti = ck.nearest_hit_matmul(*sweep)
     assert ck.LAUNCHES == before  # CPU tensors: the plain version, uncounted
     assert td.dtype == torch.float32 and ti.dtype == torch.int32
     hit = np.isfinite(jd)
@@ -150,7 +152,7 @@ def test_plain_matmul_kernels_match_pallas(scenes):
     assert (ti.numpy()[~hit] == 0).all()  # a miss reports slot 0
 
     jdd = np.asarray(pk.nearest_dist_mxu(jf, jg, jm, *EPS))
-    tdd = ck.nearest_dist_matmul(rayf, g, tm, *EPS).numpy()
+    tdd = ck.nearest_dist_matmul(*sweep).numpy()
     np.testing.assert_array_equal(np.isfinite(tdd), np.isfinite(jdd))
     np.testing.assert_allclose(tdd[np.isfinite(jdd)], jdd[np.isfinite(jdd)], rtol=1e-4)
     # K5's winners are K1's on these rays (no ray sits on an edge)
@@ -162,17 +164,20 @@ def test_plain_matmul_kernels_match_pallas(scenes):
 
 
 def test_matmul_wrappers_refuse_other_devices():
-    f = torch.empty((16, 256), device="meta")
-    g = torch.empty((4, 16, 256), device="meta")
+    f = torch.empty((3, 256), device="meta")
+    tri = torch.empty((256, 3), device="meta")
     m = torch.ones((1, 1), dtype=torch.int32, device="meta")
     for fn in (ck.nearest_hit_matmul, ck.nearest_dist_matmul):
         with pytest.raises(ValueError):
-            fn(f, g, m, *EPS)
+            fn(f, f, tri, tri, tri, m, *EPS)
         with pytest.raises(ValueError):  # mixed devices
-            fn(torch.zeros((16, 256)), g, m, *EPS)
-    tri = torch.empty((256, 3), device="meta")
+            fn(torch.zeros((3, 256)), f, tri, tri, tri, m, *EPS)
+        with pytest.raises(ValueError, match="self_hit_eps"):  # keys need > 0
+            fn(torch.zeros((3, 256)), torch.zeros((3, 256)),
+               *(torch.zeros((256, 3)),) * 3,
+               torch.ones((1, 1), dtype=torch.int32), 1e-7, -0.01)
     with pytest.raises(ValueError):
-        ck.any_hit(f[:3], f[:3], tri, tri, tri, m, *EPS)
+        ck.any_hit(f, f, tri, tri, tri, m, *EPS)
     with pytest.raises(ValueError):  # the work count exists on the card only
         ck.any_hit_walked(torch.zeros((3, 256)), torch.zeros((3, 256)),
                           torch.zeros((256, 3)), torch.zeros((256, 3)),
