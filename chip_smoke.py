@@ -10,7 +10,9 @@ shapes the renders give it, and drives every ported path through
 
 - CPU mode, backend "cuda": the 4,962-triangle sphere scene and the
   96,000-triangle sphere grid at 512x512 (K1, K2, K3), the kernel render
-  against the all-pairs "torch" backend at 128x128, and the grid again with
+  against the all-pairs "torch" backend at 128x128 (equal without that
+  backend's object-level cull, and up to the hits on an object's box edges
+  with it), and the grid again with
   the two-round front-to-back sweep (`f2b_tiles=8`), equal to the frame
   without it;
 - GPU mode: the sphere scene at 512x512 output and aliasing 3 (2,359,296
@@ -18,7 +20,17 @@ shapes the renders give it, and drives every ported path through
   to the same frame through the distance sweep, and a 64x64 GPU-mode frame
   against the "torch" backend;
 - backend "cuda_matmul": the sphere scene at 512x512 in CPU mode (K5, K6,
-  K3), held against the "cuda" frame by the edge-aware comparator.
+  K3), held against the "cuda" frame by the edge-aware comparator;
+- training (`parallel.make_train_step`): K3's gradient (`FetchRows`) against
+  autograd of the plain `table[idx]`; the gradient of `mean(render_image)` on
+  the card against the same backend on CPU tensors (the kernels' plain
+  versions) for all 13 parameter groups at 32x32 and 3 bounces, twice on the
+  card; 20 Adam
+  steps on the sphere scene at 256x256 (262,144 rays in 4 chunks, depth 6,
+  `remat=True`; K1, K2, K3 and K3's gradient) recovering perturbed `kd` and
+  `lights_rgb` from a target rendered at the true parameters, the same first
+  3 steps with `remat=False` beside them, one step with the vertices free too, and a
+  save / resume round trip of the train state.
 
 Before each of these paths the launch counts are set to 0 and read just
 after its frame. Any failure raises and the script exits non-zero; it also
@@ -33,7 +45,8 @@ whenever those outlast the kernel. `device_ms` is the device's alone: the
 same calls captured into one CUDA graph and replayed between two events.
 `library_ms` and `library_device_ms` are the same two readings of the one
 PyTorch call that computes the same function (K3: `torch.index_select`).
-Frames are host wall-clock times around synchronised renders. Every sweep
+Frames and training steps are host wall-clock times around synchronised
+calls. Every sweep
 (K1, K2, K4, K5, K6) is also run twice on the same inputs (its combine across
 blocks must not depend on their order) and on one full 65,536-ray chunk of
 the grid, K1 on rays that tie exactly across triangle tiles too. K4's count
@@ -53,15 +66,18 @@ device's busy share, and K3's wrapper's host time by its parts at 4,096 and
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 import torch
 
-from raytracing_gpu_tpu_torch import RenderConfig, SceneRenderer
+from raytracing_gpu_tpu_torch import RenderConfig, SceneRenderer, render_image
 from raytracing_gpu_tpu_torch.csrc import build
 from raytracing_gpu_tpu_torch.models.procedural import (
     make_sphere_grid_scene,
@@ -71,6 +87,17 @@ from raytracing_gpu_tpu_torch.ops import camera as camera_ops
 from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
 from raytracing_gpu_tpu_torch.ops.intersect import collide
 from raytracing_gpu_tpu_torch.ops.shading import shadow_rays
+from raytracing_gpu_tpu_torch.parallel import (
+    extract_params,
+    insert_params,
+    make_train_step,
+    predict_pixels,
+)
+from raytracing_gpu_tpu_torch.parallel.checkpoint import (
+    resume_or_init,
+    save_train_state,
+)
+from raytracing_gpu_tpu_torch.parallel.train import PARAM_KEYS
 from raytracing_gpu_tpu_torch.render import _pick_block, _swiz_ray_ids
 from raytracing_gpu_tpu_torch.utils.compare import assert_images_close
 
@@ -98,8 +125,12 @@ PAIRS_PER_TILE = ck.TILE_R * ck.TILE_T
 MAX_EDGE_FLIP_SHARE = 1e-3
 
 
+T_START = time.perf_counter()
+
+
 def say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of the report, with the seconds since the script started."""
+    print(f"[{phase}] {time.perf_counter() - T_START:6.1f}s {msg}", flush=True)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -635,6 +666,22 @@ def require_same_image(a, b, what):
     say("render", f"{what}: uint8-equal")
 
 
+# backend "torch" at its default `partitioning="octree"` culls (ray, object)
+# pairs by a slab test that drops a hit lying exactly on its object's box,
+# as the JAX package's does; the kernel backends cull tiles and keep it.
+# Such hits lie on a box's edges, lines in the image: a frame may differ
+# from the kernel frame on as many pixels as one row and one column hold
+def require_nearly_same_image(a, b, what):
+    """The two frames differ on at most height + width pixels."""
+    a, b = u8(a), u8(b)
+    n_diff, most = int((a != b).any(-1).sum()), a.shape[0] + a.shape[1]
+    if n_diff > most:
+        raise AssertionError(f"{what}: {n_diff} pixels differ, more than the {most} "
+                             "that hits on an object's box edges may take")
+    say("render", f"{what}: {n_diff} of {a.shape[0] * a.shape[1]} pixels differ "
+        f"(hits exactly on an object's box; at most {most} may)")
+
+
 def report_frames(what, renderer, times, n_primary, smi) -> float:
     """Print a path's frame times; returns their median."""
     ms = float(np.median(times))
@@ -658,16 +705,16 @@ def own_kernel(name: str):
     return next((t for t in OWN_KERNELS[:2] if t in name), None)
 
 
-def profile_frame(renderer, what) -> int:
-    """Trace one warm frame: kernel launches (returned), the device's busy
-    share (union of kernel intervals over the frame's host wall time) and
-    the time in the port's own kernels."""
+def profile_call(fn, what) -> int:
+    """Trace one warm call (a frame, a training step): kernel launches
+    (returned), the device's busy share (union of kernel intervals over the
+    call's host wall time) and the time in the port's own kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        renderer.render_device()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
@@ -684,9 +731,9 @@ def profile_frame(renderer, what) -> int:
         if tag is not None:
             n, us = own.get(tag, (0, 0.0))
             own[tag] = (n + 1, us + k.time_range.elapsed_us())
-    say("profile", f"{what}: profiled frame {wall_ms:.1f} ms, {len(kernels)} "
+    say("profile", f"{what}: profiled call {wall_ms:.1f} ms, {len(kernels)} "
         f"device kernels and copies, device busy {busy_us / 1e3:.1f} ms = "
-        f"{busy_us / 10 / wall_ms:.1f}% of the frame; own kernels "
+        f"{busy_us / 10 / wall_ms:.1f}% of it; own kernels "
         + ", ".join(f"{t} {us / 1e3:.2f} ms in {n}" for t, (n, us) in sorted(own.items())))
     return len(kernels)
 
@@ -716,13 +763,304 @@ def profile_fetch_wrapper(dev):
         args = (table.data_ptr(), 96000, ck.TABLE_WIDTH_MAT, idx.data_ptr(), 1, n,
                 out.data_ptr(), ck._stream(dev))
         parts = {"fetch_rows wrapper": lambda: ck.fetch_rows(table, idx),
+                 "the same launch through FetchRows.apply":
+                     lambda: ck.FetchRows.apply(table, idx),
                  "index_select": lambda: torch.index_select(table, 0, long_idx),
                  "torch.empty of the result": lambda: torch.empty_like(out),
                  "stream handle": lambda: ck._stream(dev),
                  "bare ctypes launch": lambda: launch(*args),
                  "out.add_(1.0)": lambda: out.add_(1.0)}
+        us = {k: host_us(fn) for k, fn in parts.items()}
         say("profile", f"host microseconds per call, {n} rows of a (96000, 32) "
-            "table: " + ", ".join(f"{k} {host_us(fn):.2f}" for k, fn in parts.items()))
+            "table: " + ", ".join(f"{k} {v:.2f}" for k, v in us.items()))
+        saved = us["the same launch through FetchRows.apply"] - us["fetch_rows wrapper"]
+        say("profile", "building no autograd node where the table needs no gradient "
+            f"saves {saved:.2f} us a call, {saved * 58 / 1e3:.3f} ms of host time "
+            "over the 58 fetches of a sphere frame")
+
+
+# ---------------------------------------------------------------------------
+# Training: K3's gradient, the card against the plain path, the train step
+# ---------------------------------------------------------------------------
+
+# gradients are sums of float32 products that the card and the CPU add in
+# another order (and the card's scatter-add in another order every run):
+# each group is held to rtol 1e-3 and atol 1e-4 of its largest entry
+GRAD_RTOL, GRAD_ATOL_SHARE = 1e-3, 1e-4
+
+
+def check_fetch_gradient(pack, idx, what):
+    """`FetchRows` forward and backward on the card against autograd of the
+    plain `table[idx]`: rows bit-equal, table gradient within rtol 1e-5 and
+    an atol set by the most-fetched slot (rows fetched more than once are
+    summed in another order), exactly zero on slots nobody fetched. Times the
+    backward alone (`FetchRows.backward`: zero table + `index_add_`)."""
+    n, (Tp, C) = idx.shape[0], pack.table.shape
+    gen = torch.Generator().manual_seed(13)
+    g = torch.randn((n, C), generator=gen).to(idx.device)
+    g[::7] = 0.0  # the rows of missed rays arrive masked
+    table = ck.check_winner_table(pack.table.detach().clone()).requires_grad_()
+    ref_table = pack.table.detach().clone().requires_grad_()
+    before = ck.LAUNCHES["fetch_rows"]
+    rows = ck.fetch_rows(table, idx)
+    if ck.LAUNCHES["fetch_rows"] != before + 1 or rows.grad_fn is None:
+        raise AssertionError("fetch_rows on the card: no launch or no grad_fn")
+    ref = ck.fetch_rows_plain(ref_table, idx)
+    if not torch.equal(rows, ref):
+        raise AssertionError(f"fetch gradient ({what}): forward rows differ")
+    rows.backward(g)
+    ref.backward(g)
+    torch.cuda.synchronize()
+    scale = float(ref_table.grad.abs().max())
+    err = float((table.grad - ref_table.grad).abs().max())
+    counts = torch.bincount(idx.long(), minlength=Tp)
+    # a slot's gradient is a float32 sum of `count` N(0,1) entries, taken in
+    # two orders: they differ by about count x 2^-23; four times that is allowed
+    atol = 4.0 * 2.0 ** -23 * float(counts.max())
+    if not torch.allclose(table.grad, ref_table.grad, rtol=1e-5, atol=atol):
+        raise AssertionError(f"fetch gradient ({what}): max |d| {err:.3e} over "
+                             f"atol {atol:.3e} (largest entry {scale:.3e})")
+    used = counts > 0
+    if bool(table.grad[~used].any()) or not bool((~used).any()):
+        raise AssertionError(f"fetch gradient ({what}): unreferenced slots not zero")
+    ctx = types.SimpleNamespace(saved_tensors=(idx,), table_shape=(Tp, C))
+    long_idx = idx.long()
+
+    def backward():
+        return ck.FetchRows.backward(ctx, g)
+
+    def plain_backward():  # what autograd runs for table[idx]
+        return torch.zeros((Tp, C), device=g.device).index_put_(
+            (long_idx,), g, accumulate=True)
+
+    bms, by = bound(0, n * C * 4 + n * 4 + Tp * C * 4)
+    res = dict(ms=cuda_ms(backward, 50), device_ms=device_ms(backward),
+               plain_ms=cuda_ms(plain_backward, 5), bound_ms=bms, max_abs_err=err)
+    say("train", f"fetch gradient ({what}): {n} rows (stride {idx.stride(0)}, "
+        f"{int(used.sum())} distinct, {int(counts.max())} into one slot) of a {(Tp, C)} "
+        f"table: forward bit-equal, gradient max |d| {err:.3e} (atol {atol:.3e}, "
+        f"largest entry {scale:.3e}), unreferenced slots exactly 0; "
+        f"backward (zero table + index_add_) wrapper {res['ms']:.4f} ms, device only "
+        f"{res['device_ms']:.4f} ms, index_put_(accumulate) {res['plain_ms']:.4f} ms, "
+        f"bound {bms:.5f} ms ({by})")
+    return res
+
+
+def render_gradients(scene, cfg, device):
+    """{group: gradient of mean(render_image)} on `device`, as CPU tensors.
+    The parameters are leaves on the CPU, as `make_sphere_scene` gives them:
+    `render_image` moves the scene, and the gradient comes back through
+    that copy."""
+    p = {k: v.detach().clone().requires_grad_() for k, v in extract_params(scene).items()}
+    render_image(insert_params(scene, p), cfg, device=device).mean().backward()
+    return {k: v.grad for k, v in p.items()}
+
+
+def check_gradient_against_plain(dev):
+    """The gradient on the card (kernels) against the same backend on CPU
+    tensors (plain versions), 32x32 sphere scene, all 13 groups for backend
+    "cuda" and three for "cuda_matmul"; on the card twice. Geometry, normals,
+    materials and the camera must get a gradient that is not all zero: a
+    fetch without `grad_fn` or a camera basis computed off the graph would
+    leave exact zeros there. The plain sweeps on the CPU compute all pairs,
+    seconds per bounce: the depth is cut to 3 and 2 bounces (every group's
+    gradient is there from the second bounce on)."""
+    scene = make_sphere_scene(32, 32, **SPHERES)
+    for backend, depth, groups, nonzero in (
+            ("cuda", 3, PARAM_KEYS, ("vertices", "normals", "kd", "cam_fov")),
+            ("cuda_matmul", 2, ("vertices", "kd", "lights_rgb"),
+             ("vertices", "kd", "lights_rgb"))):
+        cfg = RenderConfig(quantize="smooth", backend=backend, diff_max_depth=depth)
+        ck.reset_launch_counts()
+        got = render_gradients(scene, cfg, dev)
+        counts = dict(ck.LAUNCHES)
+        again = render_gradients(scene, cfg, dev)
+        ref = render_gradients(scene, cfg, "cpu")
+        worst, rerun = 0.0, 0.0
+        for k in groups:
+            scale = float(ref[k].abs().max())
+            if not bool(torch.isfinite(got[k]).all()):
+                raise AssertionError(f"gradient of {k} ({backend}) is not finite")
+            if k in nonzero and not bool(got[k].any()):
+                raise AssertionError(f"gradient of {k} ({backend}) is all zero on the card")
+            if not torch.allclose(got[k], ref[k], rtol=GRAD_RTOL,
+                                  atol=GRAD_ATOL_SHARE * scale):
+                raise AssertionError(
+                    f"gradient of {k} ({backend}): card against plain path max |d| "
+                    f"{float((got[k] - ref[k]).abs().max()):.3e} of {scale:.3e}")
+            worst = max(worst, float((got[k] - ref[k]).abs().max()) / scale)
+            rerun = max(rerun, float((got[k] - again[k]).abs().max()) / scale)
+        say("train", f"gradient of mean(render_image), spheres 32x32, depth {depth}, {backend}: "
+            f"{len(groups)} groups on the card within rtol {GRAD_RTOL} / atol "
+            f"{GRAD_ATOL_SHARE} of the largest entry of the plain path's; largest "
+            f"|d| {worst:.3e} of a group's largest entry; {', '.join(nonzero)} not "
+            f"all zero; second run on the card differs by at most {rerun:.3e}; "
+            f"launches of one forward+backward {counts}")
+
+
+TRAIN = dict(size=256, ray_chunk=65536, depth=6, steps=20, lr=1e-2)
+
+
+def perturbed_params(scene, seed=20261016):
+    """The scene's parameters with `kd` of the real objects and `lights_rgb`
+    moved off their true values."""
+    rng = np.random.default_rng(seed)
+    params = {k: v.clone() for k, v in extract_params(scene).items()}
+    kd = params["kd"].numpy()
+    noise = rng.uniform(-0.3, 0.3, kd.shape).astype(np.float32)
+    noise[scene.n_objects:] = 0.0
+    params["kd"] = torch.from_numpy(np.clip(kd + noise, 0.05, 1.0))
+    rgb = params["lights_rgb"].numpy()
+    params["lights_rgb"] = torch.from_numpy(np.clip(
+        rgb + rng.uniform(-0.2, 0.2, rgb.shape).astype(np.float32), 0.05, 1.5))
+    return params
+
+
+def timed_steps(step_fn, state, scene, coords, target, n):
+    """n synchronised steps: (state, losses, ms per step, launches per step,
+    peak bytes allocated)."""
+    losses, times, counts = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(n):
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, scene, coords, target)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts.append(dict(ck.LAUNCHES))
+        losses.append(float(loss))
+    return state, losses, times, counts, torch.cuda.max_memory_allocated()
+
+
+def check_training(dev, smi, want_profile):
+    """The training path at full width; returns the launches of one step
+    with `remat=True`."""
+    size = TRAIN["size"]
+    scene = make_sphere_scene(size, size, **SPHERES)
+    scene_d = scene.to(dev)
+    cfg = RenderConfig(mode="cpu", quantize="smooth", backend="cuda",
+                       ray_chunk=TRAIN["ray_chunk"], diff_max_depth=TRAIN["depth"],
+                       remat=True)
+    n_rays = size * size * 4
+    coords = camera_ops.cpu_subpixel_coords_traced(
+        size, size, torch.arange(n_rays, device=dev))
+    with torch.no_grad():
+        target = predict_pixels(scene, cfg, TRAIN["depth"], coords, device=dev)
+    if tuple(target.shape) != (size * size, 3) or not bool(torch.isfinite(target).all()):
+        raise AssertionError("training target has the wrong shape or is not finite")
+    start = perturbed_params(scene)
+    true_kd = scene.materials.kd[:scene.n_objects]
+
+    def kd_error(state):
+        return float((state.params["kd"][:scene.n_objects].detach().cpu()
+                      - true_kd).abs().mean())
+
+    def free(*names):
+        return lambda p: torch.optim.Adam([p[k] for k in names], lr=TRAIN["lr"])
+
+    init_state, step_fn = make_train_step(cfg, scene, optimizer=free("kd", "lights_rgb"),
+                                          device=dev)
+    state = init_state(start)
+    kd0 = kd_error(state)
+    state, losses, times, counts, peak = timed_steps(
+        step_fn, state, scene_d, coords, target, TRAIN["steps"])
+    kd1 = kd_error(state)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"training: a loss is not finite: {losses}")
+    if not losses[-1] < 0.5 * losses[0]:
+        raise AssertionError(f"training: loss {losses[0]:.3e} -> {losses[-1]:.3e}, "
+                             "not under half its first value")
+    if not kd1 < kd0:
+        raise AssertionError(f"training: kd error {kd0:.4f} -> {kd1:.4f} did not fall")
+    per_step = counts[-1]
+    for name in ("nearest_hit", "nearest_dist", "fetch_rows"):
+        if per_step[name] <= 0:
+            raise AssertionError(f"training: a step never launched {name}")
+    if any(c != per_step for c in counts[1:]):
+        say("train", f"launches per step varied: {counts}")
+    ms = float(np.median(times[1:]))
+    say("train", f"spheres {size}x{size} ({scene.n_triangles} tris, {n_rays} rays in "
+        f"{n_rays // TRAIN['ray_chunk']} chunks, depth {TRAIN['depth']}), cuda, "
+        f"remat=True, Adam lr {TRAIN['lr']} on kd + lights_rgb: loss "
+        f"{losses[0]:.4e} -> {losses[-1]:.4e} in {len(losses)} steps "
+        f"(x{losses[-1] / losses[0]:.4f}), kd error {kd0:.4f} -> {kd1:.4f}; steps "
+        f"{[round(t, 1) for t in times]} ms, median of the warm ones {ms:.1f} ms/step; "
+        f"launches per step {per_step}; peak memory {peak / 2**20:.1f} MiB; {smi}")
+    say("train", "losses " + " ".join(f"{x:.4e}" for x in losses))
+
+    # the same steps without checkpointing: what remat saves and costs
+    plain_cfg = dataclasses.replace(cfg, remat=False)
+    init_plain, step_plain = make_train_step(
+        plain_cfg, scene, optimizer=free("kd", "lights_rgb"), device=dev)
+    _, losses_p, times_p, counts_p, peak_p = timed_steps(
+        step_plain, init_plain(start), scene_d, coords, target, 3)
+    times_r, counts_r, peak_r = times[:3], counts[:3], peak
+    for name in ("nearest_hit", "nearest_dist"):
+        if counts_p[-1][name] != counts_r[-1][name]:
+            raise AssertionError(f"remat launched {name} {counts_r[-1][name]} times a "
+                                 f"step, {counts_p[-1][name]} without it: a sweep ran "
+                                 "again in the backward pass")
+    if not np.allclose(losses_p, losses[:3], rtol=1e-3):
+        raise AssertionError(f"remat=False losses {losses_p} differ from {losses[:3]}")
+    say("train", f"remat=False, 3 steps: {[round(t, 1) for t in times_p]} ms, peak "
+        f"{peak_p / 2**20:.1f} MiB, launches per step {counts_p[-1]}; the first 3 "
+        f"steps with remat=True: {[round(t, 1) for t in times_r]} ms, peak {peak_r / 2**20:.1f} "
+        f"MiB, launches per step {counts_r[-1]}; last-step ratio remat/plain "
+        f"{times_r[-1] / times_p[-1]:.3f}, memory {peak_r / peak_p:.3f}")
+
+    # vertices free too
+    init_v, step_v = make_train_step(
+        cfg, scene, optimizer=free("kd", "lights_rgb", "vertices"), device=dev)
+    state_v = init_v(start)
+    state_v, loss_v, times_v, _, _ = timed_steps(step_v, state_v, scene_d, coords,
+                                                 target, 1)
+    moved = float((state_v.params["vertices"].detach().cpu()
+                   - scene.geometry.vertices).abs().sum())
+    if not np.isfinite(loss_v[0]) or not moved > 0.0:
+        raise AssertionError(f"training with free vertices: loss {loss_v[0]}, "
+                             f"vertices moved by {moved}")
+    say("train", f"one step with the vertices free too: loss {loss_v[0]:.4e}, "
+        f"vertices moved by {moved:.3f} in all, {times_v[0]:.1f} ms")
+
+    # save / resume round trip
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_train_state(tmp, state)
+        restored, resumed = resume_or_init(tmp, init_state(start))
+    same = resumed and restored.step == state.step and all(
+        torch.equal(restored.params[k], state.params[k]) for k in PARAM_KEYS)
+    a, b = state.opt_state.state_dict()["state"], restored.opt_state.state_dict()["state"]
+    same = same and all(torch.equal(v, b[i][name]) for i, slot in a.items()
+                        for name, v in slot.items())
+    if not same or not all(p.is_cuda for p in restored.params.values()):
+        raise AssertionError("the train state did not come back bit-equal on the card")
+    say("train", f"save / resume_or_init round trip at step {state.step} "
+        f"({path.rsplit('/', 1)[-1]}): parameters and Adam moments bit-equal, on the card")
+
+    if want_profile:
+        for what, fn, st in (("remat=True", step_fn, init_state(start)),
+                             ("remat=False", step_plain, init_plain(start))):
+            fn(st, scene_d, coords, target)
+            profile_call(lambda: fn(st, scene_d, coords, target),
+                         f"training step, spheres {size}x{size}, {what}")
+    return per_step
+
+
+def run_training_phases(dev, smi, want_profile, results):
+    """K3's gradient at the two table sizes, the card against the plain
+    path, then the training run; returns the launches of one training step."""
+    chunk = RenderConfig().ray_chunk
+    sph = make_sphere_scene(512, 512, **SPHERES).to(dev)
+    sph_pack = scene_pack(sph)
+    results["fetch_rows"]["backward"] = check_fetch_gradient(
+        sph_pack, winners(cpu_primary_rays(sph, chunk), sph_pack), "spheres")
+    grid = make_sphere_grid_scene(512, 512).to(dev)
+    grid_pack = scene_pack(grid)
+    results["grid_4096"]["fetch_rows"]["backward"] = check_fetch_gradient(
+        grid_pack, winners(cpu_primary_rays(grid, 4096), grid_pack), "grid")
+    del grid, grid_pack
+    check_gradient_against_plain(dev)
+    return check_training(dev, smi, want_profile)
 
 
 def main(argv) -> int:
@@ -750,28 +1088,40 @@ def main(argv) -> int:
     results = check_kernels(dev)
     if want_profile:
         profile_fetch_wrapper(dev)
+    launches = {}
+    launches["training"] = run_training_phases(dev, smi, want_profile, results)
     cfg = RenderConfig(backend="cuda")
     spheres512 = make_sphere_scene(512, 512, **SPHERES)
     cpu_rays = 512 * 512 * 4
-    launches = {}
 
     # ---- CPU mode, backend "cuda": the sphere scene at 512x512
     renderer = SceneRenderer(spheres512, cfg, dev)
     cuda_img, launches["cpu_mode"] = counted_frame(
         renderer, "CPU mode, spheres 512x512, cuda",
         ("nearest_hit", "nearest_dist", "fetch_rows"))
-    _, times = time_frames(renderer, 3)
+    _, times = time_frames(renderer, 2)
     report_frames(f"CPU mode, spheres 512x512, cuda (depth {renderer.depth})",
                   renderer, times, cpu_rays, smi)
     traced = {}
     if want_profile:
-        traced["cuda"] = profile_frame(renderer, "CPU mode, spheres 512x512, cuda")
+        traced["cuda"] = profile_call(renderer.render_device,
+                                      "CPU mode, spheres 512x512, cuda")
 
+    # the exact reference is brute force; the "torch" backend's default
+    # configuration (object-level cull) is held to the same frame up to the
+    # hits on an object's box (the ground quad's edge is in view at this size)
     small = make_sphere_scene(128, 128, **SPHERES)
+    small_img = SceneRenderer(small, cfg, dev).render_device()
     require_same_image(
+        small_img,
+        SceneRenderer(small, RenderConfig(backend="torch", partitioning="none"),
+                      dev).render_device(),
+        "CPU mode, spheres 128x128, cuda against the torch backend, no cull")
+    small = make_sphere_scene(64, 64, **SPHERES)
+    require_nearly_same_image(
         SceneRenderer(small, cfg, dev).render_device(),
         SceneRenderer(small, RenderConfig(backend="torch"), dev).render_device(),
-        "CPU mode, spheres 128x128, cuda against the torch backend")
+        "CPU mode, spheres 64x64, cuda against the torch backend, octree cull")
 
     # ---- the 96k-triangle grid: interval hierarchy, large-table fetch, and
     # the front-to-back sweep (375 triangle tiles > 2 * 8)
@@ -813,7 +1163,7 @@ def main(argv) -> int:
     require_same_image(any_img, dist_img,
                        "GPU mode: any-hit frame against the distance-sweep frame")
     # two versions in one call, in turns
-    _, t_any = time_frames(any_renderer, 2)
+    _, t_any = time_frames(any_renderer, 1)
     _, t_dist = time_frames(dist_renderer, 2)
     _, t_any2 = time_frames(any_renderer, 1)
     report_frames(f"GPU mode, spheres 512x512 x{ALIASING}, cuda, any-hit",
@@ -821,15 +1171,24 @@ def main(argv) -> int:
     report_frames(f"GPU mode, spheres 512x512 x{ALIASING}, cuda, distance sweep",
                   dist_renderer, t_dist, gpu_rays, smi)
     if want_profile:
-        traced["GPU mode, any-hit"] = profile_frame(
-            any_renderer, f"GPU mode, spheres 512x512 x{ALIASING}, any-hit")
+        traced["GPU mode, any-hit"] = profile_call(
+            any_renderer.render_device,
+            f"GPU mode, spheres 512x512 x{ALIASING}, any-hit")
 
     small = make_sphere_scene(64, 64, **SPHERES)
+    small_img = SceneRenderer(small, any_cfg, dev).render_device()
     require_same_image(
-        SceneRenderer(small, any_cfg, dev).render_device(),
+        small_img,
+        SceneRenderer(small, RenderConfig(mode="gpu", backend="torch",
+                                          partitioning="none",
+                                          aliasing=ALIASING), dev).render_device(),
+        f"GPU mode, spheres 64x64 x{ALIASING}, cuda against the torch backend, no cull")
+    require_nearly_same_image(
+        small_img,
         SceneRenderer(small, RenderConfig(mode="gpu", backend="torch",
                                           aliasing=ALIASING), dev).render_device(),
-        f"GPU mode, spheres 64x64 x{ALIASING}, cuda against the torch backend")
+        f"GPU mode, spheres 64x64 x{ALIASING}, cuda against the torch backend, "
+        "octree cull")
 
     # ---- backend "cuda_matmul": the sphere scene at 512x512 in CPU mode
     mm = SceneRenderer(spheres512, RenderConfig(backend="cuda_matmul"), dev)
@@ -841,7 +1200,7 @@ def main(argv) -> int:
                             context="cuda_matmul against cuda, spheres 512x512")
     say("render", f"cuda_matmul against cuda, spheres 512x512: {d}")
     # two versions in one call, in turns: cuda_matmul, cuda, cuda_matmul
-    _, times = time_frames(mm, 2)
+    _, times = time_frames(mm, 1)
     _, again = time_frames(renderer, 2)
     times += time_frames(mm, 1)[1]
     mm_frame_ms = report_frames("CPU mode, spheres 512x512, cuda_matmul", mm, times,
@@ -851,7 +1210,8 @@ def main(argv) -> int:
     say("render", "cuda_matmul frame / cuda frame beside it: "
         f"{mm_frame_ms / cuda_again_ms:.3f}")
     if want_profile:
-        traced["cuda_matmul"] = profile_frame(mm, "CPU mode, spheres 512x512, cuda_matmul")
+        traced["cuda_matmul"] = profile_call(mm.render_device,
+                                             "CPU mode, spheres 512x512, cuda_matmul")
         say("profile", "device kernels and copies per frame, spheres 512x512: "
             + ", ".join(f"{k} {n}" for k, n in traced.items())
             + f"; cuda_matmul - cuda = {traced['cuda_matmul'] - traced['cuda']}")
@@ -874,6 +1234,11 @@ def main(argv) -> int:
         entry["launches_by_path"] = {q: c[name] for q, c in launches.items()}
         if name == "fetch_rows":
             entry["also_replaces"] = f"{PALLAS}:568"
+            entry["backward"] = dict(
+                results[name]["backward"], replaces=f"{PALLAS}:582",
+                note="index_add_ inside FetchRows.backward; the JAX package's "
+                     "adjoint is a plain scatter-add outside any Pallas kernel",
+                grid_4096=results["grid_4096"][name]["backward"])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

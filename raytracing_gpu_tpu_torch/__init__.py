@@ -5,7 +5,9 @@ supersampling, recursive mirrors) or its GPU-mode pipeline (aliasing-x
 supersampling, capped bounce loop, box downscale), in `match` or `smooth`
 quantization, on an
 NVIDIA GPU, with the intersection hot path in hand-written CUDA kernels
-(`ops/cuda_intersect.py`, `csrc/intersect.cu`). The JAX package
+(`ops/cuda_intersect.py`, `csrc/intersect.cu`). `render_image` is the
+differentiable render and `parallel/` trains scene parameters on it
+(`make_train_step`, checkpoints). The JAX package
 `raytracing_gpu_tpu` is the reference it is tested against; this package
 imports only torch and numpy.
 """
@@ -20,7 +22,7 @@ from raytracing_gpu_tpu_torch.models.scene import (
     Scene,
     scene_from_numpy,
 )
-from raytracing_gpu_tpu_torch.render import SceneRenderer, render_scene
+from raytracing_gpu_tpu_torch.render import SceneRenderer, render_image, render_scene
 
 __all__ = [
     "RenderConfig",
@@ -33,5 +35,6 @@ __all__ = [
     "parse_scene",
     "parse_scene_text",
     "render_scene",
+    "render_image",
     "SceneRenderer",
 ]

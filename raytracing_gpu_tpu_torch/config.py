@@ -36,9 +36,20 @@ class RenderConfig:
     variable is read). `any_hit_min_tris` is the padded triangle count from
     which backend "cuda" answers shadow rays with the any-hit sweep instead
     of the distance sweep (same image; the default keeps it off, 0 forces
-    it). `unroll` and `remat` belong to the differentiable path, which is
-    not ported yet: the port's bounce loops are eager Python loops that exit
-    once every ray is dead, so both are validated and otherwise ignored.
+    it). `unroll` and `remat` belong to the differentiable path. The
+    port's bounce loops are eager Python loops that stop once every ray is
+    dead, and an eager loop is reverse-differentiable as it stands (dead
+    iterations would add exact zeros), so `unroll` picks no loop form here.
+    It keeps the JAX package's three values and decides only whether `remat`
+    applies: `resolve_unroll()` is True for "static", and for "auto" when
+    `quantize == "smooth"`. Where it is True, `remat` is on and autograd is
+    recording, each bounce step is checkpointed: its activations are dropped
+    after the forward pass and recomputed in the backward pass, so backward
+    memory holds one bounce and not `depth` of them. The step's sweeps are
+    not run again: their results (winner slots, hit masks, shadow booleans)
+    are kept from the forward pass (`ops.intersect.SweepTape`), the port's
+    form of the JAX package's save-only-the-sweeps policy. Forward-only
+    renders are not affected by either field.
     `ray_chunk` keeps the JAX package's default; it has not been tuned on
     the GPU yet.
     """
@@ -62,6 +73,13 @@ class RenderConfig:
     block_rays: str = "auto"
     f2b_tiles: int = 0
     any_hit_min_tris: int = ANY_HIT_OFF
+
+    def resolve_unroll(self) -> bool:
+        """True when the bounce loops run as the differentiable strategy
+        (in the port: when `remat` applies); see the class docstring."""
+        if self.unroll == "auto":
+            return self.quantize == "smooth"
+        return self.unroll == "static"
 
     def __post_init__(self):
         if self.mode not in ("cpu", "gpu"):

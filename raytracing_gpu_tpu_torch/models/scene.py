@@ -60,12 +60,19 @@ class Geometry(_Tensors):
 
     vertices/normals (T,3,3) f32, tri_obj (T,) int32, valid (T,) bool. Vertex
     order reproduces the reference's LIFO rebuild (see models/parser.py).
+
+    obj_aabb (O,2,3) per-object boxes and octree (a
+    `partition.octree.NodeCull`) are the optional acceleration data that
+    `partition.apply.with_accel` fills and backend "torch" culls with; None
+    means brute force. The kernel backends do not read them.
     """
 
     vertices: torch.Tensor
     normals: torch.Tensor
     tri_obj: torch.Tensor
     valid: torch.Tensor
+    obj_aabb: torch.Tensor | None = None
+    octree: _Tensors | None = None
 
 
 @dataclasses.dataclass
@@ -191,9 +198,22 @@ def scene_from_numpy(obj) -> Scene:
 
     Reads each leaf by attribute and converts it with `np.asarray`, so it
     needs no JAX import: the tests hand both packages the same scene this
-    way. Dtypes are forced to the port's (float32 / int32 / bool).
+    way. Dtypes are forced to the port's (float32 / int32 / bool). The
+    acceleration data (`obj_aabb`, `octree`) comes along when present.
     """
     cam, lights, geo, mats = obj.camera, obj.lights, obj.geometry, obj.materials
+    obj_aabb = octree = None
+    if getattr(geo, "obj_aabb", None) is not None:
+        obj_aabb = _t(np.asarray(geo.obj_aabb))
+    if getattr(geo, "octree", None) is not None:
+        from raytracing_gpu_tpu_torch.partition.octree import NodeCull
+
+        nc = geo.octree
+        octree = NodeCull(node_box=_t(np.asarray(nc.node_box)),
+                          node_parent=_t(np.asarray(nc.node_parent), np.int32),
+                          node_level=_t(np.asarray(nc.node_level), np.int32),
+                          node_valid=_t(np.asarray(nc.node_valid), bool),
+                          obj_node=_t(np.asarray(nc.obj_node), np.int32))
     return Scene(
         camera=make_camera(cam.width, cam.height, np.asarray(cam.position),
                            np.asarray(cam.u), np.asarray(cam.v),
@@ -203,7 +223,8 @@ def scene_from_numpy(obj) -> Scene:
         geometry=Geometry(vertices=_t(np.asarray(geo.vertices)),
                           normals=_t(np.asarray(geo.normals)),
                           tri_obj=_t(np.asarray(geo.tri_obj), np.int32),
-                          valid=_t(np.asarray(geo.valid), bool)),
+                          valid=_t(np.asarray(geo.valid), bool),
+                          obj_aabb=obj_aabb, octree=octree),
         materials=Materials(**{
             f.name: _t(np.asarray(getattr(mats, f.name)))
             for f in dataclasses.fields(Materials)

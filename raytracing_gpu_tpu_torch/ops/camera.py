@@ -34,12 +34,23 @@ def _libm_tanf():
     return fn
 
 
-def camera_basis(camera: Camera):
-    """(u, v, C), each a (3,) float32 tensor on the camera's device.
+class _Tanf(torch.autograd.Function):
+    """tan of a () float32 tensor with libm's value (one host round trip)
+    and the derivative 1 + tan^2."""
 
-    Computed on the host in float32, like vector3_normalize and the plane
-    centre of cpu/raytracer.c:82-86.
-    """
+    @staticmethod
+    def forward(ctx, x):
+        t = x.new_tensor(_libm_tanf()(x.item()))
+        ctx.save_for_backward(t)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        (t,) = ctx.saved_tensors
+        return grad * (1.0 + t * t)
+
+
+def _camera_basis_host(camera: Camera):
     f32 = np.float32
     u_raw = camera.u.detach().cpu().numpy().astype(f32)
     v_raw = camera.v.detach().cpu().numpy().astype(f32)
@@ -61,6 +72,40 @@ def camera_basis(camera: Camera):
     dev = camera.position.device
     return tuple(torch.from_numpy(np.ascontiguousarray(a, f32)).to(dev)
                  for a in (u, v, C))
+
+
+def _camera_basis_traced(camera: Camera):
+    def norm(a):
+        sq = a * a
+        return a / sqrt_rn((sq[0] + sq[1]) + sq[2])
+
+    u = norm(camera.u)
+    v = norm(camera.v)
+    w = torch.stack([u[1] * v[2] - u[2] * v[1],
+                     u[2] * v[0] - u[0] * v[2],
+                     u[0] * v[1] - u[1] * v[0]])
+    tan = _Tanf.apply(camera.fov * float(np.float32(math.pi / 360.0)))
+    # a tensor numerator: float / tensor is reciprocal-then-multiply in torch
+    L = tan.new_tensor(float(camera.width)) / (2.0 * tan)
+    return u, v, camera.position + w * L
+
+
+def camera_basis(camera: Camera):
+    """(u, v, C), each a (3,) float32 tensor on the camera's device, in
+    float32 like vector3_normalize and the plane centre of
+    cpu/raytracer.c:82-86.
+
+    Where no camera tensor requires grad (every plain render) the basis is
+    computed on the host in numpy. Where one does, and grad is enabled, the
+    same operations run as tensor ops, so u, v and C carry gradient to
+    `position`, `u`, `v` and `fov`; the tangent keeps libm's value (one host
+    round trip) and gets its derivative 1 + tan^2 from `_Tanf`. Every
+    operation of either path is a correctly rounded float32 operation in
+    the same order, so the two bases differ by 0 ulp (held by a test on the
+    CPU)."""
+    traced = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (camera.position, camera.u, camera.v, camera.fov))
+    return _camera_basis_traced(camera) if traced else _camera_basis_host(camera)
 
 
 def cpu_subpixel_coords_traced(width: int, height: int, ray_ids):

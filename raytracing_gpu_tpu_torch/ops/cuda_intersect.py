@@ -10,7 +10,8 @@ The counterpart of the JAX package's `ops/pallas_intersect.py`:
   tiles by `pack_rays`) into an (nT, nR) mask of (triangle tile, ray tile)
   pairs that may hold a hit: brute force, flat per-ray slab tests, or the
   coarse-to-fine union-box hierarchy with interval tests below the top;
-- `nearest_hit` (K1), `nearest_dist` (K2), `fetch_rows` (K3), `any_hit` (K4),
+- `nearest_hit` (K1), `nearest_dist` (K2), `fetch_rows` (K3, differentiable
+  with respect to its table: `FetchRows`), `any_hit` (K4),
   `nearest_hit_matmul` (K5) and `nearest_dist_matmul` (K6) launch the
   kernels of `csrc/intersect.cu` on CUDA tensors. On CPU tensors they run
   their plain versions, so every step around the kernels runs in the CPU
@@ -176,8 +177,13 @@ def pack_geometry(vertices, valid, normals=None, tri_obj=None,
     """Cluster and pack a triangle soup for the kernels. With normals and
     tri_obj the winner table is built too (collide needs it); with
     `materials` the owning object's ka/kd/ks/ns/nr ride along in columns
-    19-29, so collide returns them with the same fetch."""
-    perm, tile_aabb, tile_nonempty = cluster_triangles(vertices, valid)
+    19-29, so collide returns them with the same fetch.
+
+    Only the table carries gradient (to vertices, normals and materials):
+    the clustering and the v0/e1/e2 planes feed the sweeps, which only
+    select, so they are cut from the graph here."""
+    with torch.no_grad():
+        perm, tile_aabb, tile_nonempty = cluster_triangles(vertices, valid)
     p = perm.long()
     v0, e1, e2 = pack_triangles(vertices[p], valid[p])
     table = None
@@ -197,7 +203,8 @@ def pack_geometry(vertices, valid, normals=None, tri_obj=None,
         table = torch.cat([table, table.new_zeros((Tp, width - table.shape[1]))], 1)
     if table is not None:
         table = check_winner_table(table.contiguous())
-    return KernelPack(perm, tile_aabb, tile_nonempty, v0, e1, e2, table)
+    return KernelPack(perm, tile_aabb, tile_nonempty, v0.detach(), e1.detach(),
+                      e2.detach(), table)
 
 
 # ---------------------------------------------------------------------------
@@ -864,10 +871,51 @@ def check_winner_table(table):
     return table
 
 
+def _launch_fetch_rows(table, idx):
+    """Launch `fetch_rows_kernel` on arguments `fetch_rows` has checked."""
+    n = idx.shape[0]
+    Tp, C = table.shape
+    out = torch.empty((n, C), dtype=torch.float32, device=table.device)
+    if n:
+        _check(_kernels()["fetch_rows"](
+            table.data_ptr(), Tp, C, idx.data_ptr(), idx.stride(0), n,
+            out.data_ptr(), _stream(table.device)), "fetch_rows")
+        LAUNCHES["fetch_rows"] += 1
+    return out
+
+
+class FetchRows(torch.autograd.Function):
+    """K3 with its gradient. Forward launches `fetch_rows_kernel`; backward
+    is the gather's exact adjoint, the row cotangents scatter-added into a
+    zero table of the table's shape. The JAX package computes that adjoint
+    outside any Pallas kernel (`jnp.zeros(shape).at[idx].add(g)`), so
+    `index_add_` is its port and no kernel stands behind it. On the card
+    `index_add_` sums with atomics: rows fetched more than once are summed in
+    an order that changes from run to run, and so do the gradient's last
+    bits. Arguments are checked by `fetch_rows`, the only caller."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = tuple(table.shape)
+        return _launch_fetch_rows(table, idx)
+
+    @staticmethod
+    def backward(ctx, grad_rows):
+        (idx,) = ctx.saved_tensors
+        # idx may be a stride-2 view of K1's keys: .long() makes the
+        # contiguous int64 copy index_add_ wants
+        grad_table = grad_rows.new_zeros(ctx.table_shape)
+        grad_table.index_add_(0, idx.long(), grad_rows.contiguous())
+        return grad_table, None
+
+
 def fetch_rows(table, idx):
     """K3: rows = table[idx] for a (Tp, 24|32) float32 winner table and (n,)
     int32 slots (any stride); a slot outside the table gives a NaN row on
-    the card. Replaces the fetch kernels of _fetch_rows_impl."""
+    the card. Differentiable with respect to the table on either device (on
+    the card through `FetchRows`). Replaces the fetch kernels of
+    _fetch_rows_impl and the custom VJP of fetch_winner_rows."""
     if not getattr(table, "winner_table_checked", False):
         check_winner_table(table)
     if idx.dim() != 1:
@@ -877,14 +925,8 @@ def fetch_rows(table, idx):
         return fetch_rows_plain(table, idx)
     if idx.dtype != torch.int32:
         raise TypeError(f"fetch_rows: expected int32 slots, got {idx.dtype}")
-    n = idx.shape[0]
-    Tp, C = table.shape
-    if n * C >= 1 << 31:
+    if idx.shape[0] * table.shape[1] >= 1 << 31:
         raise ValueError("fetch_rows: the result must stay under 2**31 elements")
-    out = torch.empty((n, C), dtype=torch.float32, device=table.device)
-    if n:
-        _check(_kernels()["fetch_rows"](
-            table.data_ptr(), Tp, C, idx.data_ptr(), idx.stride(0), n,
-            out.data_ptr(), _stream(table.device)), "fetch_rows")
-        LAUNCHES["fetch_rows"] += 1
-    return out
+    if table.requires_grad and torch.is_grad_enabled():
+        return FetchRows.apply(table, idx)
+    return _launch_fetch_rows(table, idx)  # no autograd node on the render path

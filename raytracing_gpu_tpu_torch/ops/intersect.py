@@ -6,9 +6,10 @@ The JAX package's `ops/intersect.py`: `collide` is the reference's `collide`
 0.0 on a miss; `collide_any` the boolean the shadow test actually reads.
 
 - backend "torch": all-pairs Möller–Trumbore over the scene in file order
-  (`_mt_core`), in ray blocks so memory stays bounded. It is the port's
-  CPU-runnable reference; the JAX package's object-level cull feeds only its
-  jnp path and is conservative, so this backend is brute force.
+  (`_mt_core`), in ray blocks so memory stays bounded, less the (ray,
+  object) pairs that the scene's acceleration data culls (`_cull_mask`:
+  `Geometry.obj_aabb` / `octree`). With `partitioning="none"` it is the
+  port's brute-force reference.
 - backend "cuda": the kernel path of `ops/cuda_intersect.py` — tile culling,
   the K1/K2 sweeps and the K3 winner-row fetch — then u/v/t, hit point and
   normal recomputed on the winner with plain tensor ops. Winners are in
@@ -20,6 +21,16 @@ The JAX package's `ops/intersect.py`: `collide` is the reference's `collide`
   (the JAX "mxu" backend): rays recentred on the centroid of the live rays,
   the four determinants as 16-feature dot products. Their association
   differs from the scalar form, so winners may flip on exact geometry edges.
+
+Differentiability: a sweep only selects (a winner slot and a hit mask, both
+piecewise constant), so every sweep runs under `no_grad` on any backend, the
+port's form of the JAX package's `stop_gradient` barrier. u/v/t, distance,
+point and normal are recomputed on each ray's winner from the fetched rows
+(`FetchRows` on the card) or the gathered triangle, and carry the gradient
+to rays, vertices, normals and, on 32-wide tables, materials. On an exact
+tie the first winner alone gets it. A `SweepTape` lets a checkpointed bounce
+step run its sweeps once: recorded in the forward pass, replayed when the
+step is recomputed in the backward pass.
 """
 
 from __future__ import annotations
@@ -52,13 +63,63 @@ class Hit:
     # (cuda backend: fetched with the winner row)
 
 
-def _mt_core(origins, dirs, vertices, valid, mt_eps, self_hit_eps):
-    """All-pairs Möller–Trumbore over a (T,3,3) soup in file order:
-    (dist, u, v, t), each (R,T), dist +inf where rejected or invalid."""
+class SweepTape:
+    """The results of one bounce step's sweeps, in call order: recorded the
+    first time the step runs and, after `rewind()`, handed back when the step
+    is recomputed, so that rematerialization does not sweep again."""
+
+    def __init__(self):
+        self._items = []
+        self._next = None  # None: recording
+
+    def rewind(self) -> None:
+        self._next = 0
+
+    def take(self, sweep):
+        if self._next is None:
+            self._items.append(sweep())
+            return self._items[-1]
+        item = self._items[self._next]
+        self._next += 1
+        return item
+
+
+def _swept(tape, sweep):
+    return sweep() if tape is None else tape.take(sweep)
+
+
+def _cull_mask(origins, dirs, geometry):
+    """(R,T) bool pair mask from the scene's acceleration data, or None:
+    the per-object slab test (gpu/hit.cu:96-101) and, with an octree, the
+    top-down walk of its node graph (`octree_object_reach`). Meant to be
+    conservative (a culled object holds no accepted hit), and equal to the
+    JAX package's mask; the slab test rounds, though, so a hit that lies
+    exactly on its object's box can be culled, there as here."""
+    if geometry.obj_aabb is None:
+        return None
+    from raytracing_gpu_tpu_torch.partition.aabb import hit_aabb
+
+    ohit = hit_aabb(origins, dirs, geometry.obj_aabb)  # (R,O)
+    if geometry.octree is not None:
+        from raytracing_gpu_tpu_torch.partition.octree import octree_object_reach
+
+        ohit &= octree_object_reach(origins, dirs, geometry.octree)
+    return ohit[:, geometry.tri_obj.long()]
+
+
+def _mt_core(origins, dirs, geometry, mt_eps, self_hit_eps):
+    """All-pairs Möller–Trumbore over the scene's (T,3,3) soup in file
+    order: (R,T) distances, +inf where the pair is rejected, invalid or
+    culled."""
+    vertices = geometry.vertices
     v0 = vertices[:, 0]
-    dist, u, v, t = ck.mt_pairs(origins, dirs, v0, vertices[:, 1] - v0,
-                                vertices[:, 2] - v0, mt_eps, self_hit_eps)
-    return torch.where(valid[None, :], dist, INF), u, v, t
+    dist = ck.mt_pairs(origins, dirs, v0, vertices[:, 1] - v0,
+                       vertices[:, 2] - v0, mt_eps, self_hit_eps)[0]
+    keep = geometry.valid[None, :]
+    pair_mask = _cull_mask(origins, dirs, geometry)
+    if pair_mask is not None:
+        keep = keep & pair_mask
+    return torch.where(keep, dist, INF)
 
 
 def _ray_blocks(R: int, T: int):
@@ -129,55 +190,69 @@ def _kernel_sweep(origins, dirs, pack, mt_eps, self_hit_eps, backend,
     return ck.nearest_hit(*sweep)
 
 
+@torch.no_grad()  # a sweep only selects
+def _all_pairs_sweep(origins, dirs, geometry, mt_eps, self_hit_eps,
+                     want_idx: bool):
+    """Backend "torch"'s sweep: (minimum accepted distance (R,), +inf on a
+    miss; its first triangle in file order (R,) int64, 0 on a miss, or
+    None)."""
+    dmin, win = [], []
+    for r0, r1 in _ray_blocks(origins.shape[0], geometry.vertices.shape[0]):
+        dist = _mt_core(origins[r0:r1], dirs[r0:r1], geometry, mt_eps,
+                        self_hit_eps)
+        if want_idx:
+            d, w = ck.first_argmin(dist)
+            win.append(w.long())
+        else:
+            d = dist.amin(1)
+        dmin.append(d)
+    return torch.cat(dmin), torch.cat(win) if want_idx else None
+
+
 def collide(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
             backend: str = "torch", pack=None,
-            partitioning: str = "octree", f2b_tiles: int = 0) -> Hit:
-    """Nearest hit over all triangles (cpu/hit.c:72-91)."""
+            partitioning: str = "octree", f2b_tiles: int = 0,
+            tape: SweepTape | None = None) -> Hit:
+    """Nearest hit over all triangles (cpu/hit.c:72-91). Differentiable:
+    the winner is discrete, its point, normal and distance carry gradient
+    to the rays and to the winner's geometry (and materials, `Hit.mat`)."""
     R = origins.shape[0]
-    dlen = _dir_length(dirs)
     mat = None
     if backend in KERNEL_BACKENDS:
         if pack is None or pack.table is None:  # collide needs the winner table
             pack = ck.pack_geometry(geometry.vertices, geometry.valid,
                                     geometry.normals, geometry.tri_obj)
-        sweep_dist, idx = _kernel_sweep(origins, dirs, pack, mt_eps,
-                                        self_hit_eps, backend, partitioning,
-                                        True, f2b_tiles)
+        sweep_dist, idx = _swept(tape, lambda: _kernel_sweep(
+            origins, dirs, pack, mt_eps, self_hit_eps, backend, partitioning,
+            True, f2b_tiles))
         rows = ck.fetch_rows(pack.table, idx[:R])
+        v0, e1, e2 = rows[:, ck.COL_V0], rows[:, ck.COL_E1], rows[:, ck.COL_E2]
         tri_n = rows[:, ck.COL_N].reshape(R, 3, 3)
         obj = rows[:, ck.COL_OBJ].to(torch.int32)
         if rows.shape[1] == ck.TABLE_WIDTH_MAT:
             mat = rows[:, ck.COL_MAT]
-        wu, wv, wt = _winner_uvt_from(origins, dirs, rows[:, ck.COL_V0],
-                                      rows[:, ck.COL_E1], rows[:, ck.COL_E2],
-                                      mt_eps)
-        # reference distance |fl(o + nd*(t*|d|)) - o| (cpu/hit.c:36-38,57),
-        # the sweep's own chain, so a winner's distance is the one it won by
-        td = wt * dlen
-        p = [(origins[:, k] + (dirs[:, k] / dlen) * td) - origins[:, k]
-             for k in range(3)]
-        wdist = sqrt_rn((p[0] * p[0] + p[1] * p[1]) + p[2] * p[2])
         # acceptance comes from the sweep (a miss leaves slot 0 and +inf)
         mask = torch.isfinite(sweep_dist[:R])
     elif backend == "torch":
-        wdist, wu, wv, wt = (origins.new_empty((R,)) for _k in range(4))
-        win = torch.empty((R,), dtype=torch.int64, device=origins.device)
-        for r0, r1 in _ray_blocks(R, geometry.vertices.shape[0]):
-            dist, u, v, t = _mt_core(origins[r0:r1], dirs[r0:r1],
-                                     geometry.vertices, geometry.valid,
-                                     mt_eps, self_hit_eps)
-            wd, w = ck.first_argmin(dist)
-            w = w.long()[:, None]
-            wdist[r0:r1] = wd
-            win[r0:r1] = w[:, 0]
-            wu[r0:r1] = u.gather(1, w)[:, 0]
-            wv[r0:r1] = v.gather(1, w)[:, 0]
-            wt[r0:r1] = t.gather(1, w)[:, 0]
-        mask = torch.isfinite(wdist)
+        dmin, win = _swept(tape, lambda: _all_pairs_sweep(
+            origins, dirs, geometry, mt_eps, self_hit_eps, True))
+        tri = geometry.vertices[win]
+        v0 = tri[:, 0]
+        e1, e2 = tri[:, 1] - v0, tri[:, 2] - v0
         tri_n = geometry.normals[win]
         obj = geometry.tri_obj[win]
+        mask = torch.isfinite(dmin)
     else:
         raise ValueError(f"bad backend {backend!r}")
+
+    wu, wv, wt = _winner_uvt_from(origins, dirs, v0, e1, e2, mt_eps)
+    # reference distance |fl(o + nd*(t*|d|)) - o| (cpu/hit.c:36-38,57), the
+    # sweep's own chain, so a winner's distance is the one it won by
+    dlen = _dir_length(dirs)
+    td = wt * dlen
+    p = [(origins[:, k] + (dirs[:, k] / dlen) * td) - origins[:, k]
+         for k in range(3)]
+    wdist = sqrt_rn((p[0] * p[0] + p[1] * p[1]) + p[2] * p[2])
 
     # hit point: origin + normalize(dir) * (t*|dir|)  (cpu/hit.c:36-38)
     point = origins + (dirs / dlen[:, None]) * (wt[:, None] * dlen[:, None])
@@ -195,30 +270,38 @@ def collide(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
 
 
 def collide_dist(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
-                 backend: str = "torch", pack=None, partitioning: str = "octree"):
+                 backend: str = "torch", pack=None, partitioning: str = "octree",
+                 tape: SweepTape | None = None):
     """Nearest accepted distance per ray, 0.0 on a miss (cpu/hit.c:93-109).
-    The kernel backends' K2/K6 return t*|d|; shadows read only `!= 0`."""
+    The kernel backends' K2/K6 return t*|d|; shadows read only `!= 0`, so no
+    gradient flows through it."""
     R = origins.shape[0]
-    with torch.no_grad():
-        if backend in KERNEL_BACKENDS:
-            if pack is None:
-                pack = ck.pack_geometry(geometry.vertices, geometry.valid)
-            m = _kernel_sweep(origins, dirs, pack, mt_eps, self_hit_eps,
-                              backend, partitioning, False)[0][:R]
-        elif backend == "torch":
-            m = origins.new_empty((R,))
-            for r0, r1 in _ray_blocks(R, geometry.vertices.shape[0]):
-                m[r0:r1] = _mt_core(origins[r0:r1], dirs[r0:r1],
-                                    geometry.vertices, geometry.valid,
-                                    mt_eps, self_hit_eps)[0].amin(1)
-        else:
-            raise ValueError(f"bad backend {backend!r}")
+    if backend in KERNEL_BACKENDS:
+        if pack is None:
+            pack = ck.pack_geometry(geometry.vertices, geometry.valid)
+        m = _swept(tape, lambda: _kernel_sweep(
+            origins, dirs, pack, mt_eps, self_hit_eps, backend, partitioning,
+            False)[0])[:R]
+    elif backend == "torch":
+        m = _swept(tape, lambda: _all_pairs_sweep(
+            origins, dirs, geometry, mt_eps, self_hit_eps, False)[0])
+    else:
+        raise ValueError(f"bad backend {backend!r}")
     return torch.where(torch.isfinite(m), m, 0.0)
+
+
+@torch.no_grad()
+def _any_hit_sweep(origins, dirs, pack, mt_eps, self_hit_eps, partitioning):
+    op, dp, R = ck.pack_rays(origins, dirs)
+    tmask = ck.tile_cull_mask_hierarchical(op, dp, pack, partitioning)
+    return ck.any_hit(op, dp, pack.v0, pack.e1, pack.e2, tmask, mt_eps,
+                      self_hit_eps)[:R]
 
 
 def collide_any(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
                 backend: str = "torch", pack=None, partitioning: str = "octree",
-                any_hit_min_tris: int = ANY_HIT_OFF):
+                any_hit_min_tris: int = ANY_HIT_OFF,
+                tape: SweepTape | None = None):
     """(R,) bool: any accepted hit — what the shadow test reads
     (`has_direct_hit`, cpu/light.c:24-31, occludes on any hit; its distance
     comparison is dead code). On backend "cuda", a scene of at least
@@ -229,10 +312,7 @@ def collide_any(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
     if backend == "cuda" and geometry.vertices.shape[0] >= any_hit_min_tris:
         if pack is None:
             pack = ck.pack_geometry(geometry.vertices, geometry.valid)
-        with torch.no_grad():
-            op, dp, R = ck.pack_rays(origins, dirs)
-            tmask = ck.tile_cull_mask_hierarchical(op, dp, pack, partitioning)
-            return ck.any_hit(op, dp, pack.v0, pack.e1, pack.e2, tmask,
-                              mt_eps, self_hit_eps)[:R]
+        return _swept(tape, lambda: _any_hit_sweep(
+            origins, dirs, pack, mt_eps, self_hit_eps, partitioning))
     return collide_dist(origins, dirs, geometry, mt_eps, self_hit_eps,
-                        backend, pack, partitioning) != 0.0
+                        backend, pack, partitioning, tape) != 0.0

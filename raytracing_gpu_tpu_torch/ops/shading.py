@@ -58,30 +58,34 @@ def shadow_rays(lights, hit: Hit):
     """The batched shadow rays of one shading pass: (origins (K*R,3),
     directions (K*R,3), {light index: row block}) for the K non-ambient
     lights. Rays of missed primaries are parked (origin PARKED, direction
-    0); their results are discarded."""
+    0); their results are discarded. Cut from the graph: a shadow ray is
+    only tested for a hit."""
     R = hit.point.shape[0]
+    point, light_v = hit.point.detach(), lights.v.detach()
     block, sdirs = {}, []
     for li, kind in enumerate(lights.kind):
         if kind == DIRECTIONAL:
             block[li] = len(sdirs)
-            sdirs.append((-lights.v[li]).expand(R, 3))
+            sdirs.append((-light_v[li]).expand(R, 3))
         elif kind == POINT:
             block[li] = len(sdirs)
-            sdirs.append(lights.v[li][None, :] - hit.point)  # cpu/light.c:80
+            sdirs.append(light_v[li][None, :] - point)  # cpu/light.c:80
     if not sdirs:
         return None, None, block
     K = len(sdirs)
     live = hit.mask[:, None]
-    so = torch.where(live, hit.point, PARKED).repeat(K, 1)
+    so = torch.where(live, point, PARKED).repeat(K, 1)
     sd = torch.where(live.repeat(K, 1), torch.cat(sdirs, 0), 0.0)
     return so, sd, block
 
 
 def shade(scene, hit: Hit, cops: ColorOps, mt_eps=1e-7, self_hit_eps=0.01,
           backend="torch", pack=None, partitioning="octree",
-          any_hit_min_tris=ANY_HIT_OFF):
+          any_hit_min_tris=ANY_HIT_OFF, tape=None):
     """(R,3) colors of a batch of hits in the cops domain; rays with
-    hit.mask False get garbage (the caller masks them)."""
+    hit.mask False get garbage (the caller masks them). The shadow pass only
+    reads a boolean, so no gradient flows through it; `tape` is the
+    `SweepTape` of a checkpointed bounce step."""
     R = hit.point.shape[0]
     lights = scene.lights
     mrows = hit.mat if hit.mat is not None else material_rows(scene.materials, hit.obj)
@@ -93,7 +97,7 @@ def shade(scene, hit: Hit, cops: ColorOps, mt_eps=1e-7, self_hit_eps=0.01,
     if so is not None:
         occluded = collide_any(so, sd, scene.geometry, mt_eps, self_hit_eps,
                                backend, pack, partitioning,
-                               any_hit_min_tris).reshape(-1, R)
+                               any_hit_min_tris, tape).reshape(-1, R)
 
     contribs = {}
     for kind in (DIRECTIONAL, POINT):

@@ -17,6 +17,14 @@ iterations), then the uint8 box downscale of gpu/raytracer.cu:49-85.
 Both bounce loops are Python loops with one `.any()` sync per bounce that
 stop once no ray is alive; dead rays are parked (origin 3e29, direction 0) so
 tile culling drops them.
+
+The loops are differentiable as they stand (`render_image`, and
+`parallel/train.py` through `trace_chunks`): a sweep only selects, and what
+depends smoothly on the scene is recomputed on each ray's winner
+(`ops/intersect.py`). With `cfg.remat` each bounce step is checkpointed and
+its sweeps are kept on a `SweepTape`, so the backward pass recomputes the
+step's arithmetic and the winner-row fetch but sweeps nothing again.
+`SceneRenderer` renders without recording.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from raytracing_gpu_tpu_torch.config import RenderConfig
 from raytracing_gpu_tpu_torch.models.scene import Scene
@@ -34,8 +43,23 @@ from raytracing_gpu_tpu_torch.ops import camera as camera_ops
 from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
 from raytracing_gpu_tpu_torch.ops.fp import f32
 from raytracing_gpu_tpu_torch.ops.colors import ColorOps
-from raytracing_gpu_tpu_torch.ops.intersect import KERNEL_BACKENDS, collide
+from raytracing_gpu_tpu_torch.ops.intersect import (
+    KERNEL_BACKENDS,
+    SweepTape,
+    collide,
+)
 from raytracing_gpu_tpu_torch.ops.shading import PARKED, material_rows, shade
+from raytracing_gpu_tpu_torch.partition.apply import with_accel
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; "cuda" without a card raises: nothing
+    falls back to the CPU unless `device="cpu"` is asked for."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but CUDA is not "
+                           "available; pass device='cpu' to render on the CPU")
+    return device
 
 
 def required_depth(max_nr: float, cutoff: float, cap: int) -> int:
@@ -55,38 +79,67 @@ def _winner_nr(scene, hit):
     return material_rows(scene.materials, hit.obj)[:, 10]
 
 
+def _bounce_step(scene, cfg, cops, pack, gpu_semantics, tape,
+                 o, d, coef, alive, color):
+    """One bounce of either pipeline: nearest hits, their shaded colors
+    added under the running coefficient, and the mirror rays of the rays
+    still in use (every other ray is parked). `alive` comes in already
+    narrowed to the rays this bounce traces."""
+    hit = collide(o, d, scene.geometry, cfg.mt_eps, cfg.self_hit_eps,
+                  cfg.backend, pack, cfg.partitioning, cfg.f2b_tiles, tape)
+    local = shade(scene, hit, cops, cfg.mt_eps, cfg.self_hit_eps,
+                  cfg.backend, pack, cfg.partitioning, cfg.any_hit_min_tris,
+                  tape)
+    use = alive & hit.mask
+    color = cops.add(color, torch.where(use[:, None],
+                                        cops.mul(local, coef[:, None]), 0.0))
+    o, d = _bounce(o, d, hit, use)
+    if gpu_semantics:
+        coef = coef * torch.where(use, _winner_nr(scene, hit), 0.0)
+    else:
+        coef = torch.where(use, _winner_nr(scene, hit) * coef, 0.0)
+    return o, d, coef, use, color
+
+
+def _trace(scene, origins, dirs, cfg, pack, n_bounces: int, gpu_semantics: bool):
+    """The bounce loop of both pipelines. CPU pipeline: a ray is traced
+    while coef >= cutoff. GPU pipeline: the first bounce is unconditional and
+    a ray stays alive while nr_acc > cutoff (strictly)."""
+    cops = ColorOps(cfg.quantize)
+    R = origins.shape[0]
+    cutoff = f32(cfg.reflect_cutoff)
+    remat = cfg.remat and cfg.resolve_unroll() and torch.is_grad_enabled()
+    state = (origins, dirs, origins.new_ones((R,)),
+             torch.ones((R,), dtype=torch.bool, device=origins.device),
+             cops.zeros((R,), device=origins.device))
+    for _ in range(n_bounces):
+        o, d, coef, alive, color = state
+        if not gpu_semantics:
+            alive = alive & (coef >= cutoff)
+        if not bool(alive.any()):
+            break
+        if remat:
+            tape = SweepTape()
+            step = functools.partial(_bounce_step, scene, cfg, cops, pack,
+                                     gpu_semantics, tape)
+            state = checkpoint(step, o, d, coef, alive, color,
+                               use_reentrant=False, preserve_rng_state=False)
+            tape.rewind()
+        else:
+            state = _bounce_step(scene, cfg, cops, pack, gpu_semantics, None,
+                                 o, d, coef, alive, color)
+        if gpu_semantics:
+            o, d, coef, alive, color = state
+            state = (o, d, coef, alive & (coef > cutoff), color)
+    return state[4]
+
+
 def trace_rays(scene: Scene, origins, dirs, cfg: RenderConfig, depth: int,
                pack=None):
     """Emulated recursive trace() for a batch of rays: (R,3) colors in the
     cfg.quantize domain. Contributions accumulate forward through the
     saturating add (associative for non-negative terms)."""
-    cops = ColorOps(cfg.quantize)
-    R = origins.shape[0]
-    o, d = origins, dirs
-    coef = origins.new_ones((R,))
-    alive = torch.ones((R,), dtype=torch.bool, device=origins.device)
-    color = cops.zeros((R,), device=origins.device)
-    cutoff = f32(cfg.reflect_cutoff)
-    for _ in range(depth):
-        if not bool((alive & (coef >= cutoff)).any()):
-            break
-        hit, local = _hit_and_shade(scene, o, d, cfg, cops, pack)
-        use = alive & (coef >= cutoff) & hit.mask
-        color = cops.add(color, torch.where(use[:, None],
-                                            cops.mul(local, coef[:, None]), 0.0))
-        o, d = _bounce(o, d, hit, use)
-        coef = torch.where(use, _winner_nr(scene, hit) * coef, 0.0)
-        alive = use
-    return color
-
-
-def _hit_and_shade(scene, o, d, cfg, cops, pack):
-    """One bounce's nearest hits and their locally shaded colors."""
-    hit = collide(o, d, scene.geometry, cfg.mt_eps, cfg.self_hit_eps,
-                  cfg.backend, pack, cfg.partitioning, cfg.f2b_tiles)
-    local = shade(scene, hit, cops, cfg.mt_eps, cfg.self_hit_eps,
-                  cfg.backend, pack, cfg.partitioning, cfg.any_hit_min_tris)
-    return hit, local
+    return _trace(scene, origins, dirs, cfg, pack, depth, False)
 
 
 def _bounce(o, d, hit, use):
@@ -107,24 +160,51 @@ def trace_rays_gpu(scene: Scene, origins, dirs, cfg: RenderConfig, pack=None):
     first bounce is unconditional, accumulation is a shallow-first saturating
     add, and a ray stays alive while nr_acc > cutoff (strictly, where the CPU
     pipeline tests coef >= cutoff), for at most max_bounce + 1 iterations."""
-    cops = ColorOps(cfg.quantize)
+    return _trace(scene, origins, dirs, cfg, pack, cfg.max_bounce + 1, True)
+
+
+def _kernel_pack(scene, cfg):
+    """The kernel backends' pack of the scene's current geometry (its table
+    carries gradient to vertices, normals and materials), else None."""
+    if cfg.backend not in KERNEL_BACKENDS:
+        return None
+    g = scene.geometry
+    return ck.pack_geometry(g.vertices, g.valid, g.normals, g.tri_obj,
+                            scene.materials)
+
+
+def trace_chunks(scene, origins, dirs, cfg, depth, pack=None,
+                 gpu_semantics=False):
+    """Trace explicit ray arrays `cfg.ray_chunk` rays at a time: yields
+    (first ray, colors of the chunk's rays) chunk by chunk, so a caller can
+    run a backward pass per chunk and keep one chunk's graph alive at a
+    time. The tail chunk is padded to the chunk size with rays from the
+    origin along (1,1,1), as the JAX package pads it (the matmul backend
+    recentres on every ray of a chunk); their colors are dropped."""
     R = origins.shape[0]
-    o, d = origins, dirs
-    nr_acc = origins.new_ones((R,))
-    alive = torch.ones((R,), dtype=torch.bool, device=origins.device)
-    color = cops.zeros((R,), device=origins.device)
-    cutoff = f32(cfg.reflect_cutoff)
-    for _ in range(cfg.max_bounce + 1):
-        if not bool(alive.any()):
-            break
-        hit, local = _hit_and_shade(scene, o, d, cfg, cops, pack)
-        use = alive & hit.mask
-        color = cops.add(color, torch.where(use[:, None],
-                                            cops.mul(local, nr_acc[:, None]), 0.0))
-        o, d = _bounce(o, d, hit, use)
-        nr_acc = nr_acc * torch.where(use, _winner_nr(scene, hit), 0.0)
-        alive = use & (nr_acc > cutoff)
-    return color
+    chunk = min(cfg.ray_chunk, R)
+    if pack is None:
+        pack = _kernel_pack(scene, cfg)
+    for c0 in range(0, R, chunk):
+        o, d = origins[c0:c0 + chunk], dirs[c0:c0 + chunk]
+        n = o.shape[0]
+        if n < chunk:
+            o = torch.cat([o, o.new_zeros((chunk - n, 3))])
+            d = torch.cat([d, d.new_ones((chunk - n, 3))])
+        if gpu_semantics:
+            colors = trace_rays_gpu(scene, o, d, cfg, pack)
+        else:
+            colors = trace_rays(scene, o, d, cfg, depth, pack)
+        colors = colors[:n]
+        yield c0, colors
+        del colors  # the chunk's graph must not outlive the caller's use of it
+
+
+def _trace_chunked(scene, origins, dirs, cfg, depth, pack=None,
+                   gpu_semantics=False):
+    """(R,3) colors of explicit ray arrays, traced in chunks."""
+    return torch.cat([c for _, c in trace_chunks(scene, origins, dirs, cfg,
+                                                 depth, pack, gpu_semantics)])
 
 
 def _pick_block(width: int, height: int):
@@ -179,6 +259,8 @@ def _trace_image(scene, cfg, depth, n_rays, coord_fn, pack=None,
     that a pixel's subsamples never straddle chunks."""
     chunk = min(cfg.ray_chunk, n_rays)
     dev = scene.device
+    if pack is None:
+        pack = _kernel_pack(scene, cfg)
     u, v, C = camera_ops.camera_basis(scene.camera)
     pos = scene.camera.position
     out = []
@@ -265,24 +347,21 @@ class SceneRenderer:
 
     def __init__(self, scene: Scene, cfg: RenderConfig = RenderConfig(),
                  device="cuda"):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but CUDA is not "
-                               "available; pass device='cpu' to render on the CPU")
+        device = resolve_device(device)
         self.cfg = cfg
         self.width, self.height = scene.camera.width, scene.camera.height
         self.scene = scene.to(device)
+        if cfg.partitioning != "none" and cfg.backend == "torch":
+            # the object-level cull; the kernel backends cull tiles instead
+            self.scene, _ = with_accel(self.scene, cfg.partitioning)
         self.depth = None
         if cfg.mode == "cpu":
             max_nr = float(np.max(scene.materials.nr.cpu().numpy()))
             cap = (cfg.diff_max_depth if cfg.quantize == "smooth"
                    else cfg.cpu_max_depth)
             self.depth = required_depth(max_nr, cfg.reflect_cutoff, cap)
-        self.pack = None
-        if cfg.backend in KERNEL_BACKENDS:
-            g = self.scene.geometry
-            self.pack = ck.pack_geometry(g.vertices, g.valid, g.normals,
-                                         g.tri_obj, self.scene.materials)
+        with torch.no_grad():
+            self.pack = _kernel_pack(self.scene, cfg)
 
     @torch.no_grad()
     def render_device(self) -> torch.Tensor:
@@ -301,3 +380,25 @@ def render_scene(scene: Scene, cfg: RenderConfig = RenderConfig(),
     """Render a scene to an (H,W,3) float image in [0,255]; truncate to
     uint8 (or write with utils.image.write_ppm) for the reference's output."""
     return SceneRenderer(scene, cfg, device).render()
+
+
+def render_image(scene: Scene, cfg: RenderConfig | None = None,
+                 depth: int | None = None, device="cuda") -> torch.Tensor:
+    """Differentiable render: scene -> (H,W,3) float32 image in [0,255] on
+    `device`, recorded by autograd wherever a scene tensor requires grad.
+    The scene is moved to `device` first (`device="cuda"` raises without a
+    card; only `device="cpu"` takes the plain path), and the move is itself
+    recorded, so gradients reach the caller's tensors wherever they lie.
+    With `quantize="smooth"` (the default here)
+    `render_image(scene).mean().backward()` leaves gradients on vertices,
+    normals, materials, lights and camera. The recursion depth is not
+    derived from the materials: it defaults to `cfg.diff_max_depth` (smooth)
+    or `cfg.cpu_max_depth` (match). In GPU mode the downscale's uint8
+    truncation has a zero derivative, as in the reference."""
+    cfg = cfg or RenderConfig(quantize="smooth")
+    scene = scene.to(resolve_device(device))
+    if depth is None:
+        depth = cfg.diff_max_depth if cfg.quantize == "smooth" else cfg.cpu_max_depth
+    if cfg.mode == "cpu":
+        return _render_cpu_mode(scene, cfg, depth)
+    return _render_gpu_mode(scene, cfg)
