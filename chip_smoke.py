@@ -24,13 +24,23 @@ shapes the renders give it, and drives every ported path through
 - training (`parallel.make_train_step`): K3's gradient (`FetchRows`) against
   autograd of the plain `table[idx]`; the gradient of `mean(render_image)` on
   the card against the same backend on CPU tensors (the kernels' plain
-  versions) for all 13 parameter groups at 32x32 and 3 bounces, twice on the
+  versions) for all 13 parameter groups at 32x32 and 2 bounces, twice on the
   card; 20 Adam
   steps on the sphere scene at 256x256 (262,144 rays in 4 chunks, depth 6,
   `remat=True`; K1, K2, K3 and K3's gradient) recovering perturbed `kd` and
   `lights_rgb` from a target rendered at the true parameters, the same first
   3 steps with `remat=False` beside them, one step with the vertices free too, and a
-  save / resume round trip of the train state.
+  save / resume round trip of the train state;
+- sharding (`parallel/`): world size 1 through `render_scene_sharded` and
+  `make_sharded_renderer` on the CPU-mode sphere frame at 512x512, bit-equal
+  to `SceneRenderer`'s frame and timed beside it in turns (the sharded
+  plumbing's own cost on one card: row-major rays, a pack per call); one
+  step of the 256x256 training cell through a (1,1) mesh against the
+  one-device step; and two gloo ranks started by this script
+  (`--shard-rank`), sharing the one card, rendering the 128x128 frame over
+  meshes (2,1) and (1,2), each uint8-equal to the single-process frame. NCCL
+  refuses two ranks on one device, so nothing across cards is shown, and
+  nothing of the two ranks is timed.
 
 Before each of these paths the launch counts are set to 0 and read just
 after its frame. Any failure raises and the script exits non-zero; it also
@@ -67,7 +77,9 @@ device's busy share, and K3's wrapper's host time by its parts at 4,096 and
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
+import socket
 import subprocess
 import sys
 import tempfile
@@ -90,13 +102,18 @@ from raytracing_gpu_tpu_torch.ops.shading import shadow_rays
 from raytracing_gpu_tpu_torch.parallel import (
     extract_params,
     insert_params,
+    make_mesh,
+    make_sharded_renderer,
     make_train_step,
+    multihost,
     predict_pixels,
+    render_scene_sharded,
 )
 from raytracing_gpu_tpu_torch.parallel.checkpoint import (
     resume_or_init,
     save_train_state,
 )
+from raytracing_gpu_tpu_torch.parallel.render import frame_inputs, split_scene
 from raytracing_gpu_tpu_torch.parallel.train import PARAM_KEYS
 from raytracing_gpu_tpu_torch.render import _pick_block, _swiz_ray_ids
 from raytracing_gpu_tpu_torch.utils.compare import assert_images_close
@@ -863,12 +880,13 @@ def check_gradient_against_plain(dev):
     materials and the camera must get a gradient that is not all zero: a
     fetch without `grad_fn` or a camera basis computed off the graph would
     leave exact zeros there. The plain sweeps on the CPU compute all pairs,
-    seconds per bounce: the depth is cut to 3 and 2 bounces (every group's
-    gradient is there from the second bounce on)."""
+    seconds per bounce: the depth is cut to 2 bounces (every group's
+    gradient is there from the second bounce on) and to 1 for the three
+    groups of "cuda_matmul"."""
     scene = make_sphere_scene(32, 32, **SPHERES)
     for backend, depth, groups, nonzero in (
-            ("cuda", 3, PARAM_KEYS, ("vertices", "normals", "kd", "cam_fov")),
-            ("cuda_matmul", 2, ("vertices", "kd", "lights_rgb"),
+            ("cuda", 2, PARAM_KEYS, ("vertices", "normals", "kd", "cam_fov")),
+            ("cuda_matmul", 1, ("vertices", "kd", "lights_rgb"),
              ("vertices", "kd", "lights_rgb"))):
         cfg = RenderConfig(quantize="smooth", backend=backend, diff_max_depth=depth)
         ck.reset_launch_counts()
@@ -959,7 +977,7 @@ def check_training(dev, smi, want_profile):
     def free(*names):
         return lambda p: torch.optim.Adam([p[k] for k in names], lr=TRAIN["lr"])
 
-    init_state, step_fn = make_train_step(cfg, scene, optimizer=free("kd", "lights_rgb"),
+    init_state, step_fn = make_train_step(None, cfg, scene, optimizer=free("kd", "lights_rgb"),
                                           device=dev)
     state = init_state(start)
     kd0 = kd_error(state)
@@ -992,7 +1010,7 @@ def check_training(dev, smi, want_profile):
     # the same steps without checkpointing: what remat saves and costs
     plain_cfg = dataclasses.replace(cfg, remat=False)
     init_plain, step_plain = make_train_step(
-        plain_cfg, scene, optimizer=free("kd", "lights_rgb"), device=dev)
+        None, plain_cfg, scene, optimizer=free("kd", "lights_rgb"), device=dev)
     _, losses_p, times_p, counts_p, peak_p = timed_steps(
         step_plain, init_plain(start), scene_d, coords, target, 3)
     times_r, counts_r, peak_r = times[:3], counts[:3], peak
@@ -1011,7 +1029,7 @@ def check_training(dev, smi, want_profile):
 
     # vertices free too
     init_v, step_v = make_train_step(
-        cfg, scene, optimizer=free("kd", "lights_rgb", "vertices"), device=dev)
+        None, cfg, scene, optimizer=free("kd", "lights_rgb", "vertices"), device=dev)
     state_v = init_v(start)
     state_v, loss_v, times_v, _, _ = timed_steps(step_v, state_v, scene_d, coords,
                                                  target, 1)
@@ -1063,7 +1081,179 @@ def run_training_phases(dev, smi, want_profile, results):
     return check_training(dev, smi, want_profile)
 
 
+# ---------------------------------------------------------------------------
+# Sharding: world size 1 through the sharded entry points, and two gloo
+# ranks sharing the card
+# ---------------------------------------------------------------------------
+
+SHARD_SIZE = 128  # the frame the two gloo ranks render
+SHARD_MESHES = ((2, 1), (1, 2))
+# gradients on the card are sums of atomics (`index_add_`): two runs of the
+# same step differ by a few 1e-6 of a group's largest entry
+SHARD_GRAD_ATOL_SHARE = 1e-5
+
+
+def check_shard_frame(scene, cfg, renderer, ref_img, smi, want_profile):
+    """World size 1 through `make_sharded_renderer` (the code under
+    `render_scene_sharded`) on the sphere frame: bit-equal to
+    `SceneRenderer`'s frame, launches counted, both timed in turns (and
+    traced under --profile). Returns the launches of one sharded frame."""
+    mesh = make_mesh(1, 1)
+    frame_scene, depth, coords = frame_inputs(scene.to(ref_img.device), cfg)
+    geo, rest = split_scene(frame_scene)
+    render = make_sharded_renderer(mesh, cfg, depth, renderer.width, renderer.height,
+                                   device=ref_img.device)
+
+    def frame():
+        with torch.no_grad():
+            return render(geo, rest, coords)
+
+    ck.reset_launch_counts()
+    img = frame()
+    torch.cuda.synchronize()
+    counts = dict(ck.LAUNCHES)
+    for name in ("nearest_hit", "nearest_dist", "fetch_rows"):
+        if counts[name] <= 0:
+            raise AssertionError(f"the sharded frame never launched {name}")
+    if not torch.equal(img, ref_img):
+        raise AssertionError("world size 1: the sharded frame is not bit-equal to "
+                             "SceneRenderer's")
+    check_image(img, renderer.width, renderer.height)
+    if not torch.equal(render_scene_sharded(scene, cfg, mesh, to_host=False,
+                                            device=ref_img.device), ref_img):
+        raise AssertionError("world size 1: render_scene_sharded is not bit-equal to "
+                             "SceneRenderer's frame")
+    plain, sharded = [], []
+    for fn, times in ((renderer.render_device, plain), (frame, sharded),
+                      (frame, sharded), (renderer.render_device, plain)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    say("shard", f"world size 1, spheres {renderer.width}x{renderer.height}, cuda: "
+        "render_scene_sharded and make_sharded_renderer bit-equal to SceneRenderer's "
+        f"frame; launches in one sharded frame {counts}; ms/frame in turns: sharded "
+        f"{[round(t, 3) for t in sharded]}, SceneRenderer {[round(t, 3) for t in plain]}, "
+        f"median ratio {np.median(sharded) / np.median(plain):.3f}; {smi}")
+    if want_profile:
+        profile_call(frame, f"world size 1, sharded frame, spheres {renderer.width}x"
+                     f"{renderer.height}")
+    return counts
+
+
+def check_shard_train_step(dev, smi):
+    """One step of the 256x256 training cell through a (1, 1) mesh and the
+    five-argument step_fn, against the one-device step from the same start:
+    the same loss, and the gradients of all 13 groups within
+    SHARD_GRAD_ATOL_SHARE of each group's largest entry."""
+    size = TRAIN["size"]
+    scene = make_sphere_scene(size, size, **SPHERES)
+    cfg = RenderConfig(mode="cpu", quantize="smooth", backend="cuda",
+                       ray_chunk=TRAIN["ray_chunk"], diff_max_depth=TRAIN["depth"],
+                       remat=True)
+    coords = camera_ops.cpu_subpixel_coords_traced(
+        size, size, torch.arange(size * size * 4, device=dev))
+    with torch.no_grad():
+        target = predict_pixels(scene, cfg, TRAIN["depth"], coords, device=dev)
+    start = perturbed_params(scene)
+
+    def every_group(p):  # rate 0: the step leaves the gradients and moves nothing
+        return torch.optim.SGD(list(p.values()), lr=0.0)
+
+    init1, step1 = make_train_step(None, cfg, scene, optimizer=every_group, device=dev)
+    one, loss1 = step1(init1(start), scene.to(dev), coords, target)
+    init_s, step_s = make_train_step(make_mesh(1, 1), cfg, scene, optimizer=every_group,
+                                     device=dev)
+    geo, rest = split_scene(scene)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    sharded, loss_s = step_s(init_s(start), geo, rest, coords, target)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(ck.LAUNCHES)
+    if float(loss_s) != float(loss1):
+        raise AssertionError(f"sharded step loss {float(loss_s)!r} != one-device "
+                             f"{float(loss1)!r}")
+    worst = 0.0
+    for k in PARAM_KEYS:
+        a, b = sharded.params[k].grad, one.params[k].grad
+        scale = max(float(b.abs().max()), 1e-30)
+        err = float((a - b).abs().max()) / scale
+        if not torch.allclose(a, b, rtol=1e-5, atol=SHARD_GRAD_ATOL_SHARE * scale):
+            raise AssertionError(f"sharded step: gradient of {k} off by {err:.3e} of "
+                                 "its largest entry")
+        worst = max(worst, err)
+    say("shard", f"world size 1, training step spheres {size}x{size} through a (1,1) "
+        f"mesh: loss {float(loss_s):.6e} equal to the one-device step's; 13 groups' "
+        f"gradients within {worst:.3e} of a group's largest entry; {ms:.1f} ms; "
+        f"launches {counts}; {smi}")
+
+
+def shard_rank_main(argv) -> int:
+    """One of two gloo ranks sharing the card (`--shard-rank RANK PORT OUT
+    DEVICE`): renders the SHARD_SIZE sphere frame sharded over each of
+    SHARD_MESHES on DEVICE and writes it to OUT.<mesh>.<rank>.npy."""
+    rank, port, out, device = int(argv[1]), argv[2], argv[3], argv[4]
+    multihost.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                         timeout=datetime.timedelta(seconds=300))
+    scene = make_sphere_scene(SHARD_SIZE, SHARD_SIZE, **SPHERES)
+    for t, s in SHARD_MESHES:
+        ck.reset_launch_counts()
+        img = render_scene_sharded(scene, RenderConfig(backend="cuda"), make_mesh(t, s),
+                                   device=device)
+        np.save(f"{out}.{t}x{s}.{rank}.npy", img)
+        print(f"rank {rank} mesh ({t},{s}): launches {dict(ck.LAUNCHES)}", flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def check_two_gloo_ranks(dev):
+    """Two processes on the one card in a gloo group render the
+    SHARD_SIZE frame over (2,1) and (1,2): each rank's image uint8-equal to
+    the single-process frame. Nothing is timed: two ranks on one card
+    measure contention."""
+    ref = u8(SceneRenderer(make_sphere_scene(SHARD_SIZE, SHARD_SIZE, **SPHERES),
+                           RenderConfig(backend="cuda"), dev).render_device())
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/frame"
+        procs = [subprocess.Popen([sys.executable, __file__, "--shard-rank", str(r),
+                                   str(port), out, str(dev)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=400)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError("a gloo rank failed:\n" + "\n---\n".join(
+                log[-4000:] for log in logs))
+        for line in "".join(logs).splitlines():
+            if line.startswith("rank "):
+                say("shard", line)
+        for t, s in SHARD_MESHES:
+            for r in range(2):
+                img = np.load(f"{out}.{t}x{s}.{r}.npy")
+                got = np.trunc(img).astype(np.int32)
+                n_diff = int((got != ref).any(-1).sum())
+                if got.shape != ref.shape or n_diff:
+                    raise AssertionError(f"gloo rank {r}, mesh ({t},{s}): {n_diff} pixels "
+                                         "differ from the single-process frame")
+    say("shard", f"two gloo ranks sharing the card, meshes {SHARD_MESHES}: every rank's "
+        f"{SHARD_SIZE}x{SHARD_SIZE} frame uint8-equal to the single-process frame")
+
+
 def main(argv) -> int:
+    if argv[:1] == ["--shard-rank"]:
+        return shard_rank_main(argv)
     want_profile = "--profile" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1106,6 +1296,13 @@ def main(argv) -> int:
     if want_profile:
         traced["cuda"] = profile_call(renderer.render_device,
                                       "CPU mode, spheres 512x512, cuda")
+
+    # ---- sharding: world size 1 through the sharded entry points on the
+    # same frame, the sharded train step, two gloo ranks sharing the card
+    launches["shard"] = check_shard_frame(spheres512, cfg, renderer, cuda_img, smi,
+                                          want_profile)
+    check_shard_train_step(dev, smi)
+    check_two_gloo_ranks(dev)
 
     # the exact reference is brute force; the "torch" backend's default
     # configuration (object-level cull) is held to the same frame up to the
@@ -1241,6 +1438,7 @@ def main(argv) -> int:
                 grid_4096=results["grid_4096"][name]["backward"])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
+    say("done", f"total {time.perf_counter() - T_START:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -129,7 +129,7 @@ def main() -> None:
     def optimizer(p):
         return torch.optim.Adam([{"params": [p[k]], "lr": lr[k]} for k in free])
 
-    init_state, step_fn = make_train_step(cfg, scene, optimizer=optimizer,
+    init_state, step_fn = make_train_step(None, cfg, scene, optimizer=optimizer,
                                           loss_blur=loss_blur, device=device)
     state = init_state(params)
     dev = state.params["kd"].device

@@ -5,11 +5,18 @@
 
 `--device` defaults to cuda and fails when CUDA is not available; only an
 explicit `--device cpu` renders on the CPU (with the kernels' plain versions).
+
+Sharded over N * S processes, one per device, rays over N tiles and the
+triangles over S scene shards; rank 0 writes the image:
+
+    torchrun --nproc-per-node N*S -m raytracing_gpu_tpu_torch scene.svati \
+        out.ppm --tiles N --scene-shards S
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -44,8 +51,34 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gpu-mode bounce cap (gpu/raytracer.cu:113)")
     p.add_argument("--ray-chunk", type=int, default=65536,
                    help="rays traced per chunk")
+    p.add_argument("--tiles", type=int, default=0,
+                   help="shard rays over N processes (0 = one process); "
+                   "launch the processes with torchrun")
+    p.add_argument("--scene-shards", type=int, default=1,
+                   help="shard triangles over S processes (scene axis)")
     p.add_argument("--time", action="store_true", help="print render time")
     return p
+
+
+def _sharded_mesh(args):
+    """The (tiles, scene) mesh of a `--tiles` run, in the process group
+    torchrun started (env://); raises where the group is missing or too
+    small."""
+    import torch.distributed as dist
+
+    from raytracing_gpu_tpu_torch.parallel import make_mesh, multihost
+
+    need = args.tiles * args.scene_shards
+    if "WORLD_SIZE" in os.environ:
+        multihost.initialize(backend="gloo" if args.device == "cpu" else None)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world < need:
+        raise SystemExit(
+            f"--tiles {args.tiles} --scene-shards {args.scene_shards} needs {need} "
+            f"processes, this run has {world}: launch it as torchrun "
+            f"--nproc-per-node {need} -m raytracing_gpu_tpu_torch {args.input} "
+            f"{args.output} --tiles {args.tiles} --scene-shards {args.scene_shards}")
+    return make_mesh(args.tiles, args.scene_shards)
 
 
 def main(argv=None) -> int:
@@ -64,9 +97,17 @@ def main(argv=None) -> int:
                        aliasing=args.aliasing, max_bounce=args.max_bounce,
                        ray_chunk=args.ray_chunk)
     scene = parse_scene(args.input)
+    mesh = _sharded_mesh(args) if args.tiles else None
     t0 = time.perf_counter()
-    img = render_scene(scene, cfg, device=args.device)
+    if mesh is None:
+        img = render_scene(scene, cfg, device=args.device)
+    else:
+        from raytracing_gpu_tpu_torch.parallel import render_scene_sharded
+
+        img = render_scene_sharded(scene, cfg, mesh, device=args.device)
     dt = time.perf_counter() - t0
+    if _rank() != 0:
+        return 0  # every rank holds the image; rank 0 writes it
     if args.output.endswith(".png"):
         image_io.write_png(args.output, np.trunc(img).astype(np.uint8))
     else:
@@ -82,5 +123,16 @@ def main(argv=None) -> int:
     return 0
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    sys.exit(code)

@@ -31,6 +31,21 @@ to rays, vertices, normals and, on 32-wide tables, materials. On an exact
 tie the first winner alone gets it. A `SweepTape` lets a checkpointed bounce
 step run its sweeps once: recorded in the forward pass, replayed when the
 step is recomputed in the backward pass.
+
+Scene sharding (`scene_group`, the JAX package's `scene_axis`): each rank of
+the group holds a contiguous, ascending range of the triangles and sweeps
+only those (on the kernel backends it packs only those). `collide` gathers
+every shard's winning sweep distance and winner row over the group and
+keeps the first shard attaining the minimum, which with ascending ranges is
+the lowest-index tie-break; u/v/t, point, normal and distance are computed
+once, after the combine, alike on every rank. The gather's backward hands
+each rank the cotangent of its own rows only, so the gradient reaches the
+owning shard's triangles once and the rays' gradient is whole on every
+rank. `Hit.mat` stays None there: materials are replicated, and shading
+takes them from the combined object id. `collide_dist` takes the minimum
+over the group, `collide_any` the OR. The combines sit outside the taped
+sweeps, so a recomputed bounce step runs the same collectives in the same
+order on every rank.
 """
 
 from __future__ import annotations
@@ -209,13 +224,27 @@ def _all_pairs_sweep(origins, dirs, geometry, mt_eps, self_hit_eps,
     return torch.cat(dmin), torch.cat(win) if want_idx else None
 
 
+def _combine_shards(dist, rows, scene_group):
+    """The nearest of every shard's winners: (distance (R,), row (R, C)) of
+    the first shard attaining the minimum distance, from one gather whose
+    backward returns each rank its own rows' cotangent."""
+    from raytracing_gpu_tpu_torch.parallel import collectives
+
+    R = dist.shape[0]
+    g = collectives.all_gather(torch.cat([dist.detach()[:, None], rows], 1),
+                               scene_group).reshape(-1, R, rows.shape[1] + 1)
+    dmin, shard = ck.first_argmin(g[:, :, 0].detach().t())
+    return dmin, g[shard.long(), torch.arange(R, device=rows.device), 1:]
+
+
 def collide(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
             backend: str = "torch", pack=None,
             partitioning: str = "octree", f2b_tiles: int = 0,
-            tape: SweepTape | None = None) -> Hit:
+            tape: SweepTape | None = None, scene_group=None) -> Hit:
     """Nearest hit over all triangles (cpu/hit.c:72-91). Differentiable:
     the winner is discrete, its point, normal and distance carry gradient
-    to the rays and to the winner's geometry (and materials, `Hit.mat`)."""
+    to the rays and to the winner's geometry (and materials, `Hit.mat`,
+    when no `scene_group` shards the triangles)."""
     R = origins.shape[0]
     mat = None
     if backend in KERNEL_BACKENDS:
@@ -226,21 +255,30 @@ def collide(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
             origins, dirs, pack, mt_eps, self_hit_eps, backend, partitioning,
             True, f2b_tiles))
         rows = ck.fetch_rows(pack.table, idx[:R])
+        sweep_dist = sweep_dist[:R]
+        if scene_group is not None:
+            sweep_dist, rows = _combine_shards(sweep_dist, rows, scene_group)
+        elif rows.shape[1] == ck.TABLE_WIDTH_MAT:
+            mat = rows[:, ck.COL_MAT]
         v0, e1, e2 = rows[:, ck.COL_V0], rows[:, ck.COL_E1], rows[:, ck.COL_E2]
         tri_n = rows[:, ck.COL_N].reshape(R, 3, 3)
         obj = rows[:, ck.COL_OBJ].to(torch.int32)
-        if rows.shape[1] == ck.TABLE_WIDTH_MAT:
-            mat = rows[:, ck.COL_MAT]
         # acceptance comes from the sweep (a miss leaves slot 0 and +inf)
-        mask = torch.isfinite(sweep_dist[:R])
+        mask = torch.isfinite(sweep_dist)
     elif backend == "torch":
         dmin, win = _swept(tape, lambda: _all_pairs_sweep(
             origins, dirs, geometry, mt_eps, self_hit_eps, True))
         tri = geometry.vertices[win]
-        v0 = tri[:, 0]
-        e1, e2 = tri[:, 1] - v0, tri[:, 2] - v0
         tri_n = geometry.normals[win]
         obj = geometry.tri_obj[win]
+        if scene_group is not None:
+            rows = torch.cat([tri.reshape(R, 9), tri_n.reshape(R, 9),
+                              obj.to(torch.float32)[:, None]], 1)
+            dmin, rows = _combine_shards(dmin, rows, scene_group)
+            tri, tri_n = rows[:, :9].reshape(R, 3, 3), rows[:, 9:18].reshape(R, 3, 3)
+            obj = rows[:, 18].to(torch.int32)
+        v0 = tri[:, 0]
+        e1, e2 = tri[:, 1] - v0, tri[:, 2] - v0
         mask = torch.isfinite(dmin)
     else:
         raise ValueError(f"bad backend {backend!r}")
@@ -271,10 +309,11 @@ def collide(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
 
 def collide_dist(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
                  backend: str = "torch", pack=None, partitioning: str = "octree",
-                 tape: SweepTape | None = None):
-    """Nearest accepted distance per ray, 0.0 on a miss (cpu/hit.c:93-109).
-    The kernel backends' K2/K6 return t*|d|; shadows read only `!= 0`, so no
-    gradient flows through it."""
+                 tape: SweepTape | None = None, scene_group=None):
+    """Nearest accepted distance per ray, 0.0 on a miss (cpu/hit.c:93-109),
+    the minimum over the shards of `scene_group`. The kernel backends'
+    K2/K6 return t*|d|; shadows read only `!= 0`, so no gradient flows
+    through it."""
     R = origins.shape[0]
     if backend in KERNEL_BACKENDS:
         if pack is None:
@@ -287,6 +326,10 @@ def collide_dist(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
             origins, dirs, geometry, mt_eps, self_hit_eps, False)[0])
     else:
         raise ValueError(f"bad backend {backend!r}")
+    if scene_group is not None:
+        from raytracing_gpu_tpu_torch.parallel import collectives
+
+        m = collectives.all_reduce(m, collectives.MIN, scene_group)
     return torch.where(torch.isfinite(m), m, 0.0)
 
 
@@ -301,18 +344,24 @@ def _any_hit_sweep(origins, dirs, pack, mt_eps, self_hit_eps, partitioning):
 def collide_any(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
                 backend: str = "torch", pack=None, partitioning: str = "octree",
                 any_hit_min_tris: int = ANY_HIT_OFF,
-                tape: SweepTape | None = None):
+                tape: SweepTape | None = None, scene_group=None):
     """(R,) bool: any accepted hit — what the shadow test reads
     (`has_direct_hit`, cpu/light.c:24-31, occludes on any hit; its distance
     comparison is dead code). On backend "cuda", a scene of at least
     `any_hit_min_tris` (padded) triangles goes through the any-hit sweep K4,
     whose ray tiles stop once every live lane is occluded; everything else
     is `collide_dist != 0`, the same boolean by construction. The default
-    threshold keeps K4 off, as the JAX package's ANY_HIT_MIN_TRIS does."""
+    threshold keeps K4 off, as the JAX package's ANY_HIT_MIN_TRIS does.
+    Under a `scene_group` a ray is occluded if it is on some shard."""
     if backend == "cuda" and geometry.vertices.shape[0] >= any_hit_min_tris:
         if pack is None:
             pack = ck.pack_geometry(geometry.vertices, geometry.valid)
-        return _swept(tape, lambda: _any_hit_sweep(
+        occ = _swept(tape, lambda: _any_hit_sweep(
             origins, dirs, pack, mt_eps, self_hit_eps, partitioning))
+        if scene_group is not None:
+            from raytracing_gpu_tpu_torch.parallel import collectives
+
+            occ = collectives.all_reduce(occ, collectives.MAX, scene_group)
+        return occ
     return collide_dist(origins, dirs, geometry, mt_eps, self_hit_eps,
-                        backend, pack, partitioning, tape) != 0.0
+                        backend, pack, partitioning, tape, scene_group) != 0.0

@@ -81,11 +81,12 @@ def shadow_rays(lights, hit: Hit):
 
 def shade(scene, hit: Hit, cops: ColorOps, mt_eps=1e-7, self_hit_eps=0.01,
           backend="torch", pack=None, partitioning="octree",
-          any_hit_min_tris=ANY_HIT_OFF, tape=None):
+          any_hit_min_tris=ANY_HIT_OFF, tape=None, scene_group=None):
     """(R,3) colors of a batch of hits in the cops domain; rays with
     hit.mask False get garbage (the caller masks them). The shadow pass only
     reads a boolean, so no gradient flows through it; `tape` is the
-    `SweepTape` of a checkpointed bounce step."""
+    `SweepTape` of a checkpointed bounce step, `scene_group` the group over
+    which the triangles are sharded."""
     R = hit.point.shape[0]
     lights = scene.lights
     mrows = hit.mat if hit.mat is not None else material_rows(scene.materials, hit.obj)
@@ -97,7 +98,7 @@ def shade(scene, hit: Hit, cops: ColorOps, mt_eps=1e-7, self_hit_eps=0.01,
     if so is not None:
         occluded = collide_any(so, sd, scene.geometry, mt_eps, self_hit_eps,
                                backend, pack, partitioning,
-                               any_hit_min_tris, tape).reshape(-1, R)
+                               any_hit_min_tris, tape, scene_group).reshape(-1, R)
 
     contribs = {}
     for kind in (DIRECTIONAL, POINT):

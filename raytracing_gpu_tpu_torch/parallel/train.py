@@ -1,16 +1,28 @@
-"""Differentiable inverse rendering on one device: the training step.
+"""Differentiable inverse rendering: the training step, on one device or
+sharded over a `parallel.mesh.Mesh`.
 
-The JAX package's `parallel/train.py` without its mesh (the sharded form
-waits for the port of `parallel/render.py` and `mesh.py`):
+The JAX package's `parallel/train.py`:
 
 - `extract_params` / `insert_params`: the 13 differentiable leaf groups of a
-  scene as a flat dict, by the same names;
+  scene as a flat dict, by the same names; `PARAM_SPECS` names the mesh
+  axis each group is split over (`vertices` and `normals` over the scene
+  axis, the rest replicated) and `shard_params` gives a rank its slices;
 - `predict_pixels`: the exact prediction the loss compares with its target;
-- `make_train_step(cfg, scene, ...)` -> `(init_state, step_fn)`:
-  `step_fn(state, scene_fixed, coords, target) -> (state, loss)` renders
-  the current parameters in the smooth domain, takes
+- `make_train_step(mesh, cfg, scene, ...)` -> `(init_state, step_fn)`:
+  `step_fn(state, fixed_geo, fixed_rest, coords, target) -> (state, loss)`
+  renders the current parameters in the smooth domain, takes
   `sum(err^2) / (3 n_pixels)`, differentiates it and lets the optimizer
-  step.
+  step. `mesh=None` is one device.
+
+Sharded: each rank traces its tile's block of the rays against its shard's
+triangles (combined over the scene group in every bounce), runs the
+backward pass, and one `all_reduce(SUM)` over the tiles group per step adds
+the tiles' losses and the free groups' gradients. Nothing is summed over the
+scene group: after the combine every shard computes the same thing, its
+replicated groups get the whole gradient, and its own triangles get theirs
+through the combine's gather (`parallel.collectives.all_gather`). The JAX
+package's gather transposes to a sum over the shards instead, which scales
+its `vertices` and `normals` gradients by the number of shards.
 
 `torch.optim.Adam` stands for `optax.adam`: the same update with the same
 betas, epsilon outside the square root and bias correction. An optimizer
@@ -37,6 +49,13 @@ import torch
 from raytracing_gpu_tpu_torch.config import RenderConfig
 from raytracing_gpu_tpu_torch.models.scene import Scene
 from raytracing_gpu_tpu_torch.ops import camera as camera_ops
+from raytracing_gpu_tpu_torch.parallel import collectives
+from raytracing_gpu_tpu_torch.parallel.mesh import SCENE, TILES
+from raytracing_gpu_tpu_torch.parallel.render import (
+    check_shardable,
+    shard_geometry,
+    shard_rows,
+)
 from raytracing_gpu_tpu_torch.partition.apply import with_accel
 from raytracing_gpu_tpu_torch.render import (
     _trace_chunked,
@@ -47,6 +66,10 @@ from raytracing_gpu_tpu_torch.render import (
 
 PARAM_KEYS = ("vertices", "normals", "lights_rgb", "lights_v", "ka", "kd", "ks",
               "ns", "nr", "cam_position", "cam_u", "cam_v", "cam_fov")
+
+# the mesh axis each group's rows are split over; None: replicated
+PARAM_SPECS = {k: SCENE if k in ("vertices", "normals") else None
+               for k in PARAM_KEYS}
 
 
 def extract_params(scene: Scene) -> dict:
@@ -90,6 +113,16 @@ def params_from_numpy(arrays: dict, device="cpu") -> dict:
             for k in PARAM_KEYS}
 
 
+def shard_params(params: dict, mesh) -> dict:
+    """This rank's parameters: its contiguous slice of the groups
+    `PARAM_SPECS` splits over the scene axis, the rest as they are (no
+    copies). `mesh=None` is one device."""
+    if mesh is None:
+        return dict(params)
+    return {k: shard_rows(v, mesh) if PARAM_SPECS[k] == SCENE else v
+            for k, v in params.items()}
+
+
 def params_to_numpy(params: dict) -> dict:
     """The way back: host float32 arrays under the same names (copies: a
     later step does not change them)."""
@@ -98,13 +131,14 @@ def params_to_numpy(params: dict) -> dict:
 
 @dataclasses.dataclass
 class TrainState:
-    params: dict   # name -> tensor; the free groups require grad
+    params: dict   # name -> tensor (this rank's slice); the free groups require grad
     opt_state: Any  # the torch.optim.Optimizer over the free groups
     step: int
+    mesh: Any = None  # the mesh the params are sharded over; None: one device
 
 
 def predict_pixels(scene: Scene, cfg: RenderConfig, depth: int, coords,
-                   device="cuda"):
+                   device="cuda", scene_group=None):
     """(R/4, 3) pixel colors in [0,1] on `device` (the scene and `coords`
     are moved there; `device="cuda"` raises without a card, only
     `device="cpu"` takes the plain path): the exact prediction the training
@@ -112,12 +146,14 @@ def predict_pixels(scene: Scene, cfg: RenderConfig, depth: int, coords,
     the 2x2 subsamples, no final clamp). A target made here at the true
     parameters puts the loss's minimum exactly at those parameters, which a
     clamped render does not (a saturated pixel clamps in the image but not
-    in this prediction)."""
+    in this prediction). With a `scene_group` the scene holds this rank's
+    shard of the triangles."""
     device = resolve_device(device)
     scene, coords = scene.to(device), coords.to(device)
     u, v, C = camera_ops.camera_basis(scene.camera)
     origins, dirs = camera_ops.make_rays(u, v, C, scene.camera.position, coords)
-    colors = _trace_chunked(scene, origins, dirs, cfg, depth)
+    colors = _trace_chunked(scene, origins, dirs, cfg, depth,
+                            scene_group=scene_group)
     return colors.reshape(-1, 4, 3).mean(1)
 
 
@@ -153,55 +189,75 @@ def _default_optimizer(learning_rate: float) -> Callable:
     return lambda params: torch.optim.Adam(list(params.values()), lr=learning_rate)
 
 
-def _new_state(params: dict, optimizer: Callable, device) -> TrainState:
-    """Own copies of `params` on `device`, the optimizer over them, and
-    autograd recording exactly the groups the optimizer holds."""
+def _new_state(params: dict, optimizer: Callable, device, mesh=None) -> TrainState:
+    """Own copies of this rank's slices of `params` on `device`, the
+    optimizer over them, and autograd recording exactly the groups the
+    optimizer holds."""
+    params = shard_params(params, mesh)
     params = {k: params[k].detach().to(device, copy=True) for k in PARAM_KEYS}
     opt = optimizer(params)
     free = {id(p) for group in opt.param_groups for p in group["params"]}
     for p in params.values():
         p.requires_grad_(id(p) in free)
-    return TrainState(params=params, opt_state=opt, step=0)
+    return TrainState(params=params, opt_state=opt, step=0, mesh=mesh)
 
 
-def make_train_step(cfg: RenderConfig, scene: Scene, optimizer=None,
+def make_train_step(mesh, cfg: RenderConfig, scene: Scene, optimizer=None,
                     learning_rate: float = 1e-2, loss_blur: float = 0.0,
                     device="cuda"):
     """Build (init_state, step_fn) for inverse rendering on `scene`'s
-    structure, on one device (`device="cuda"` raises without a card).
+    structure, on `device` (`"cuda"` raises without a card), sharded over
+    `mesh` (a `parallel.mesh.Mesh`; None is one device).
 
-    init_state(params) -> TrainState: copies of the 13 groups on the device.
-    `optimizer` maps that params dict to a `torch.optim.Optimizer` over the
-    groups to train (default: Adam at `learning_rate` over all of them).
+    init_state(params) -> TrainState: copies of this rank's slices of the
+    13 groups (`shard_params`) on the device. `optimizer` maps that params
+    dict to a `torch.optim.Optimizer` over the groups to train (default:
+    Adam at `learning_rate` over all of them).
 
-    step_fn(state, scene_fixed, coords, target) -> (state, loss)
-      scene_fixed: the scene whose non-parameter leaves (tri_obj, valid,
-        light kinds, sizes) the step uses; coords (R,2) subpixel plane
-        coordinates, R divisible by 4; target (R/4,3) pixel colors in [0,1].
+    step_fn(state, fixed_geo, fixed_rest, coords, target) -> (state, loss)
+      fixed_geo, fixed_rest: the whole scene's geometry and the rest of it
+        (`parallel.render.split_scene`), whose non-parameter leaves
+        (tri_obj, valid, light kinds, sizes) the step uses; any
+        acceleration data attached to the geometry is dropped. With
+        `mesh=None`, step_fn(state, scene_fixed, coords, target) works too.
+      coords: (R,2) subpixel plane coordinates of every ray, R divisible by
+        4 * n_tiles; target: (R/4,3) pixel colors in [0,1]. Each rank takes
+        its tile's block of both.
       Updates `state` in place and returns it with the loss (a 0-d tensor
-      on the device) of the parameters before the update.
+      on the device, the same on every rank) of the parameters before the
+      update.
 
-    The pack of the kernel backends is rebuilt from the current vertices in
-    every step (its table carries the gradient); backend "torch" with
-    partitioning rebuilds its object-level boxes instead, without gradient.
-    With `loss_blur == 0` the backward pass runs chunk by chunk
-    (`cfg.ray_chunk` rays), so one chunk's graph is alive at a time; the
-    gradient is the whole image's up to the order of the sums.
+    The pack of the kernel backends is rebuilt from this rank's current
+    vertices in every step (its table carries the gradient); backend
+    "torch" with partitioning rebuilds its object-level boxes from them
+    instead, without gradient. With `loss_blur == 0` the backward pass runs
+    chunk by chunk (`cfg.ray_chunk` rays), so one chunk's graph is alive at
+    a time; the gradient is the whole image's up to the order of the sums.
+    `loss_blur > 0` needs one tile: the blur window would straddle tiles.
     """
     if cfg.quantize != "smooth":
         raise ValueError("training requires quantize='smooth' (match mode "
                          "clamps at every op and kills gradients)")
+    n_tiles = 1 if mesh is None else mesh.shape[TILES]
+    if loss_blur > 0.0 and n_tiles > 1:
+        raise ValueError("loss_blur requires tiles=1 (the blur window "
+                         "would straddle tile-shard boundaries)")
+    if mesh is not None:
+        mesh.require_member()
+        check_shardable(scene, mesh)
+    scene_group = None if mesh is None else mesh.scene_group
+    tiles_group = None if mesh is None else mesh.tiles_group
     device = resolve_device(device)
     optimizer = optimizer or _default_optimizer(learning_rate)
     max_nr = float(scene.materials.nr.max())
     depth = required_depth(max_nr, cfg.reflect_cutoff, cfg.diff_max_depth)
 
     def init_state(params: dict) -> TrainState:
-        return _new_state(params, optimizer, device)
+        return _new_state(params, optimizer, device, mesh)
 
-    def loss_and_grads(params, scene_fixed, coords, target):
-        """The loss; the free groups' gradients are left in their `.grad`."""
-        n_pixels = target.shape[0]
+    def loss_and_grads(params, scene_fixed, coords, target, n_pixels):
+        """This tile's loss; the free groups' gradients from its rays are
+        left in their `.grad`."""
         scene_now = insert_params(scene_fixed, params)
         if cfg.partitioning != "none" and cfg.backend == "torch":
             scene_now, _ = with_accel(scene_now, cfg.partitioning)
@@ -211,7 +267,8 @@ def make_train_step(cfg: RenderConfig, scene: Scene, optimizer=None,
         scale = 1.0 / (3.0 * n_pixels)
         chunkwise = loss_blur <= 0.0 and min(cfg.ray_chunk, coords.shape[0]) % 4 == 0
         total, kept = 0.0, []
-        for c0, colors in trace_chunks(scene_now, origins, dirs, cfg, depth):
+        for c0, colors in trace_chunks(scene_now, origins, dirs, cfg, depth,
+                                       scene_group=scene_group):
             if not chunkwise:
                 kept.append(colors)
                 continue
@@ -231,11 +288,47 @@ def make_train_step(cfg: RenderConfig, scene: Scene, optimizer=None,
         loss.backward()
         return loss.detach()
 
-    def step_fn(state: TrainState, scene_fixed: Scene, coords, target):
+    def sum_over_tiles(params, loss):
+        """The whole image's loss and gradients: one all_reduce(SUM) over
+        the tiles group of the loss and every free group's gradient."""
+        free = [p for p in params.values() if p.requires_grad]
+        for p in free:
+            if p.grad is None:  # no ray of this tile reached it
+                p.grad = torch.zeros_like(p)
+        flat = collectives.all_reduce(
+            torch.cat([loss.reshape(1)] + [p.grad.reshape(-1) for p in free]),
+            group=tiles_group)
+        at = 1
+        for p in free:
+            p.grad.copy_(flat[at:at + p.numel()].view_as(p))
+            at += p.numel()
+        return flat[0]
+
+    def step_fn(state: TrainState, *args):
+        if len(args) == 4:
+            fixed_geo, fixed_rest, coords, target = args
+        elif len(args) == 3 and mesh is None:
+            scene_fixed, coords, target = args
+            fixed_geo, fixed_rest = scene_fixed.geometry, scene_fixed
+        else:
+            raise TypeError("step_fn(state, fixed_geo, fixed_rest, coords, target)"
+                            + (" or step_fn(state, scene_fixed, coords, target)"
+                               if mesh is None else ""))
+        n_pixels = target.shape[0]
+        if coords.shape[0] != 4 * n_pixels or n_pixels % n_tiles:
+            raise ValueError(f"{coords.shape[0]} rays and {n_pixels} target pixels: "
+                             f"need 4 rays a pixel and pixels divisible by {n_tiles} tiles")
+        geo = dataclasses.replace(fixed_geo, obj_aabb=None, octree=None)
+        if mesh is not None:
+            geo = shard_geometry(geo, mesh)
+            coords, target = shard_rows(coords, mesh, TILES), shard_rows(target, mesh, TILES)
+        scene_fixed = dataclasses.replace(fixed_rest, geometry=geo).to(device)
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
-        loss = loss_and_grads(state.params, scene_fixed.to(device),
-                              coords.to(device), target.to(device))
+        loss = loss_and_grads(state.params, scene_fixed, coords.to(device),
+                              target.to(device), n_pixels)
+        if tiles_group is not None:
+            loss = sum_over_tiles(state.params, loss)
         opt.step()
         state.step += 1
         return state, loss

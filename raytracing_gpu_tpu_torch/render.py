@@ -72,6 +72,24 @@ def required_depth(max_nr: float, cutoff: float, cap: int) -> int:
     return max(1, min(cap, d))
 
 
+def frame_depth(scene, cfg) -> int:
+    """CPU mode's recursion depth for a scene: from its materials' largest
+    reflection coefficient, capped by `diff_max_depth` (smooth) or
+    `cpu_max_depth` (match)."""
+    max_nr = float(np.max(scene.materials.nr.cpu().numpy()))
+    cap = cfg.diff_max_depth if cfg.quantize == "smooth" else cfg.cpu_max_depth
+    return required_depth(max_nr, cfg.reflect_cutoff, cap)
+
+
+def hi_res_scene(scene, cfg):
+    """The scene with GPU mode's camera: gpu/rt.cpp:78-79 multiplies the
+    camera's width and height by aliasing before rendering, so the
+    image-plane distance uses the hi-res width."""
+    return dataclasses.replace(scene, camera=dataclasses.replace(
+        scene.camera, width=scene.camera.width * cfg.aliasing,
+        height=scene.camera.height * cfg.aliasing))
+
+
 def _winner_nr(scene, hit):
     """(R,) reflection coefficient of each winning object."""
     if hit.mat is not None:
@@ -79,17 +97,18 @@ def _winner_nr(scene, hit):
     return material_rows(scene.materials, hit.obj)[:, 10]
 
 
-def _bounce_step(scene, cfg, cops, pack, gpu_semantics, tape,
+def _bounce_step(scene, cfg, cops, pack, gpu_semantics, tape, scene_group,
                  o, d, coef, alive, color):
     """One bounce of either pipeline: nearest hits, their shaded colors
     added under the running coefficient, and the mirror rays of the rays
     still in use (every other ray is parked). `alive` comes in already
     narrowed to the rays this bounce traces."""
     hit = collide(o, d, scene.geometry, cfg.mt_eps, cfg.self_hit_eps,
-                  cfg.backend, pack, cfg.partitioning, cfg.f2b_tiles, tape)
+                  cfg.backend, pack, cfg.partitioning, cfg.f2b_tiles, tape,
+                  scene_group)
     local = shade(scene, hit, cops, cfg.mt_eps, cfg.self_hit_eps,
                   cfg.backend, pack, cfg.partitioning, cfg.any_hit_min_tris,
-                  tape)
+                  tape, scene_group)
     use = alive & hit.mask
     color = cops.add(color, torch.where(use[:, None],
                                         cops.mul(local, coef[:, None]), 0.0))
@@ -101,10 +120,13 @@ def _bounce_step(scene, cfg, cops, pack, gpu_semantics, tape,
     return o, d, coef, use, color
 
 
-def _trace(scene, origins, dirs, cfg, pack, n_bounces: int, gpu_semantics: bool):
+def _trace(scene, origins, dirs, cfg, pack, n_bounces: int, gpu_semantics: bool,
+           scene_group=None):
     """The bounce loop of both pipelines. CPU pipeline: a ray is traced
     while coef >= cutoff. GPU pipeline: the first bounce is unconditional and
-    a ray stays alive while nr_acc > cutoff (strictly)."""
+    a ray stays alive while nr_acc > cutoff (strictly). With a
+    `scene_group` the scene holds this rank's triangles only (see
+    `ops.intersect`)."""
     cops = ColorOps(cfg.quantize)
     R = origins.shape[0]
     cutoff = f32(cfg.reflect_cutoff)
@@ -116,18 +138,21 @@ def _trace(scene, origins, dirs, cfg, pack, n_bounces: int, gpu_semantics: bool)
         o, d, coef, alive, color = state
         if not gpu_semantics:
             alive = alive & (coef >= cutoff)
+        # every shard of a scene group holds the same rays and the combined
+        # hits, so their loops end together; ranks of a tiles group may stop
+        # at different bounces, so no collective may cross that group here
         if not bool(alive.any()):
             break
         if remat:
             tape = SweepTape()
             step = functools.partial(_bounce_step, scene, cfg, cops, pack,
-                                     gpu_semantics, tape)
+                                     gpu_semantics, tape, scene_group)
             state = checkpoint(step, o, d, coef, alive, color,
                                use_reentrant=False, preserve_rng_state=False)
             tape.rewind()
         else:
             state = _bounce_step(scene, cfg, cops, pack, gpu_semantics, None,
-                                 o, d, coef, alive, color)
+                                 scene_group, o, d, coef, alive, color)
         if gpu_semantics:
             o, d, coef, alive, color = state
             state = (o, d, coef, alive & (coef > cutoff), color)
@@ -135,11 +160,11 @@ def _trace(scene, origins, dirs, cfg, pack, n_bounces: int, gpu_semantics: bool)
 
 
 def trace_rays(scene: Scene, origins, dirs, cfg: RenderConfig, depth: int,
-               pack=None):
+               pack=None, scene_group=None):
     """Emulated recursive trace() for a batch of rays: (R,3) colors in the
     cfg.quantize domain. Contributions accumulate forward through the
     saturating add (associative for non-negative terms)."""
-    return _trace(scene, origins, dirs, cfg, pack, depth, False)
+    return _trace(scene, origins, dirs, cfg, pack, depth, False, scene_group)
 
 
 def _bounce(o, d, hit, use):
@@ -153,14 +178,16 @@ def _bounce(o, d, hit, use):
             torch.where(use[:, None], refl, 0.0))
 
 
-def trace_rays_gpu(scene: Scene, origins, dirs, cfg: RenderConfig, pack=None):
+def trace_rays_gpu(scene: Scene, origins, dirs, cfg: RenderConfig, pack=None,
+                   scene_group=None):
     """The GPU pipeline's iterative bounce loop for a batch of rays:
     `do { tmp = trace(); color += tmp*nr_acc; nr_acc *= hit.nr } while
     (nr_acc > 0.01 && MAX_BOUNCE-- > 0)` (gpu/raytracer.cu:107-122). The
     first bounce is unconditional, accumulation is a shallow-first saturating
     add, and a ray stays alive while nr_acc > cutoff (strictly, where the CPU
     pipeline tests coef >= cutoff), for at most max_bounce + 1 iterations."""
-    return _trace(scene, origins, dirs, cfg, pack, cfg.max_bounce + 1, True)
+    return _trace(scene, origins, dirs, cfg, pack, cfg.max_bounce + 1, True,
+                  scene_group)
 
 
 def _kernel_pack(scene, cfg):
@@ -174,7 +201,7 @@ def _kernel_pack(scene, cfg):
 
 
 def trace_chunks(scene, origins, dirs, cfg, depth, pack=None,
-                 gpu_semantics=False):
+                 gpu_semantics=False, scene_group=None):
     """Trace explicit ray arrays `cfg.ray_chunk` rays at a time: yields
     (first ray, colors of the chunk's rays) chunk by chunk, so a caller can
     run a backward pass per chunk and keep one chunk's graph alive at a
@@ -192,19 +219,19 @@ def trace_chunks(scene, origins, dirs, cfg, depth, pack=None,
             o = torch.cat([o, o.new_zeros((chunk - n, 3))])
             d = torch.cat([d, d.new_ones((chunk - n, 3))])
         if gpu_semantics:
-            colors = trace_rays_gpu(scene, o, d, cfg, pack)
+            colors = trace_rays_gpu(scene, o, d, cfg, pack, scene_group)
         else:
-            colors = trace_rays(scene, o, d, cfg, depth, pack)
+            colors = trace_rays(scene, o, d, cfg, depth, pack, scene_group)
         colors = colors[:n]
         yield c0, colors
         del colors  # the chunk's graph must not outlive the caller's use of it
 
 
 def _trace_chunked(scene, origins, dirs, cfg, depth, pack=None,
-                   gpu_semantics=False):
+                   gpu_semantics=False, scene_group=None):
     """(R,3) colors of explicit ray arrays, traced in chunks."""
-    return torch.cat([c for _, c in trace_chunks(scene, origins, dirs, cfg,
-                                                 depth, pack, gpu_semantics)])
+    return torch.cat([c for _, c in trace_chunks(scene, origins, dirs, cfg, depth,
+                                                 pack, gpu_semantics, scene_group)])
 
 
 def _pick_block(width: int, height: int):
@@ -323,11 +350,8 @@ def _render_gpu_mode(scene: Scene, cfg: RenderConfig, pack=None):
     scene's device. Rays go out in row-major order, unswizzled and unfolded,
     as in the JAX package."""
     width, height = scene.camera.width, scene.camera.height
-    hw, hh = width * cfg.aliasing, height * cfg.aliasing
-    # gpu/rt.cpp:78-79 multiplies the camera's width and height by aliasing
-    # before rendering, so the image-plane distance uses the hi-res width
-    scene_hi = dataclasses.replace(
-        scene, camera=dataclasses.replace(scene.camera, width=hw, height=hh))
+    scene_hi = hi_res_scene(scene, cfg)
+    hw, hh = scene_hi.camera.width, scene_hi.camera.height
     coord_fn = functools.partial(camera_ops.gpu_pixel_coords_traced, hw, hh)
     colors = _trace_image(scene_hi, cfg, 0, hw * hh, coord_fn, pack,
                           gpu_semantics=True)
@@ -354,12 +378,7 @@ class SceneRenderer:
         if cfg.partitioning != "none" and cfg.backend == "torch":
             # the object-level cull; the kernel backends cull tiles instead
             self.scene, _ = with_accel(self.scene, cfg.partitioning)
-        self.depth = None
-        if cfg.mode == "cpu":
-            max_nr = float(np.max(scene.materials.nr.cpu().numpy()))
-            cap = (cfg.diff_max_depth if cfg.quantize == "smooth"
-                   else cfg.cpu_max_depth)
-            self.depth = required_depth(max_nr, cfg.reflect_cutoff, cap)
+        self.depth = frame_depth(scene, cfg) if cfg.mode == "cpu" else None
         with torch.no_grad():
             self.pack = _kernel_pack(self.scene, cfg)
 

@@ -38,6 +38,18 @@ from raytracing_gpu_tpu_torch.ops import intersect as tint
 from test_torch_kernels import _jittered
 from test_torch_render import GRID
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These scenes are tiny: one intra-op thread is as fast, and the file
+    keeps its pace when other test workers load every core (several
+    processes' spinning thread pools on the same cores slow every one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 EPS = (1e-7, 0.01)
 
 
@@ -292,8 +304,10 @@ def test_collide_takes_front_to_back_only_under_its_condition(f2b_case, monkeypa
 @pytest.mark.parametrize("mode", ["cpu", "gpu"])
 def test_renders_with_any_hit_and_front_to_back_equal_the_default(mode, monkeypatch):
     """The config fields reach the sweeps through both trace loops, and the
-    image does not change."""
-    tscene = scene_from_numpy(jproc.make_sphere_grid_scene(**GRID))
+    image does not change. The grid at 8x8: its 75 triangle tiles keep the
+    front-to-back condition (more than 2 * f2b_tiles) true."""
+    tscene = scene_from_numpy(jproc.make_sphere_grid_scene(**dict(GRID, width=8,
+                                                                  height=8)))
     calls = {"any_hit": 0, "nearest_hit_front_to_back": 0}
     for name in calls:
         def spy(*a, _name=name, _real=getattr(ck, name), **k):

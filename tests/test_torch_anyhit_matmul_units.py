@@ -39,6 +39,18 @@ from raytracing_gpu_tpu_torch.ops import intersect as ti
 
 from test_torch_sweep_split import _rays, _scene
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These scenes are tiny: one intra-op thread is as fast, and the file
+    keeps its pace when other test workers load every core (several
+    processes' spinning thread pools on the same cores slow every one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 EPS = (1e-7, 0.01)
 SUB = 64  # triangles of a unit (SWEEP_SUB in csrc/intersect.cu)
 

@@ -43,6 +43,18 @@ from raytracing_gpu_tpu_torch.ops.colors import ColorOps
 
 from test_torch_kernels import _jittered
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These scenes are tiny: one intra-op thread is as fast, and the file
+    keeps its pace when other test workers load every core (several
+    processes' spinning thread pools on the same cores slow every one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPHERES = dict(width=16, height=16, n_lat=8, n_lon=12)
 GRID = dict(width=16, height=16, nx=4, ny=4, nz=2, n_lat=16, n_lon=20)
@@ -240,7 +252,8 @@ vn 0.0 0.0 -1.0
 
 
 def _run(args, cwd, timeout=300):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one intra-op thread, as in this process (see _one_torch_thread)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=timeout)
 

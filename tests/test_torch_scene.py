@@ -34,6 +34,18 @@ from raytracing_gpu_tpu_torch.models.scene import (
 from raytracing_gpu_tpu_torch.ops import camera as tcam
 from raytracing_gpu_tpu_torch.ops import colors as tcolors
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These scenes are tiny: one intra-op thread is as fast, and the file
+    keeps its pace when other test workers load every core (several
+    processes' spinning thread pools on the same cores slow every one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SCENES = {
     "spheres": (jproc.make_sphere_scene, tproc.make_sphere_scene,
                 dict(width=16, height=16, n_lat=8, n_lon=12)),

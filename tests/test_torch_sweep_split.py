@@ -41,6 +41,18 @@ from raytracing_gpu_tpu_torch.models.scene import scene_from_numpy
 from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
 from raytracing_gpu_tpu_torch.ops import intersect as ti
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These scenes are tiny: one intra-op thread is as fast, and the file
+    keeps its pace when other test workers load every core (several
+    processes' spinning thread pools on the same cores slow every one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 EPS = (1e-7, 0.01)
 SPHERES = dict(width=12, height=12, n_lat=16, n_lon=20)  # 1,202 triangles, 5 tiles
 

@@ -169,7 +169,7 @@ def test_train_step_reduces_loss(jscene, tscene, port_backend, jax_backend,
     params0 = dict(extract_params(tscene))
     params0["kd"] = params0["kd"].clone()
     params0["kd"][0] = torch.from_numpy(WRONG_KD)
-    init_state, step_fn = make_train_step(cfg, tscene, optimizer=_sgd_on_kd(),
+    init_state, step_fn = make_train_step(None, cfg, tscene, optimizer=_sgd_on_kd(),
                                           device="cpu")
     state = init_state(params0)
     assert [k for k, p in state.params.items() if p.requires_grad] == ["kd"]
@@ -206,7 +206,7 @@ def test_adam_is_optax_adam(tscene):
     """The default optimizer (`torch.optim.Adam`) moves every group as
     optax's adam would on the same gradients."""
     cfg = RenderConfig(backend="cuda", **KW)
-    init_state, step_fn = make_train_step(cfg, tscene, learning_rate=1e-2, device="cpu")
+    init_state, step_fn = make_train_step(None, cfg, tscene, learning_rate=1e-2, device="cpu")
     state = init_state(extract_params(tscene))
     assert all(p.requires_grad for p in state.params.values())
     coords = torch.from_numpy(_coords())
@@ -237,7 +237,7 @@ def test_chunkwise_backward_is_the_whole_image_gradient(tscene, backend):
     coords = torch.from_numpy(_coords())
     target = torch.full((W * H, 3), 0.25)
     init_state, step_fn = make_train_step(
-        cfg, tscene, optimizer=lambda p: torch.optim.SGD(list(p.values()), lr=0.0),
+        None, cfg, tscene, optimizer=lambda p: torch.optim.SGD(list(p.values()), lr=0.0),
         device="cpu")
     state, loss = step_fn(init_state(extract_params(tscene)), tscene, coords, target)
     p = {k: v.detach().clone().requires_grad_() for k, v in extract_params(tscene).items()}
@@ -256,10 +256,10 @@ def test_chunkwise_backward_is_the_whole_image_gradient(tscene, backend):
 def test_loss_blur(tscene):
     cfg = RenderConfig(backend="cuda", **KW)
     coords, target = torch.from_numpy(_coords()), torch.zeros((W * H, 3))
-    init_state, step_fn = make_train_step(cfg, tscene, optimizer=_sgd_on_kd(0.1),
+    init_state, step_fn = make_train_step(None, cfg, tscene, optimizer=_sgd_on_kd(0.1),
                                           loss_blur=1.0, device="cpu")
     state, blurred = step_fn(init_state(extract_params(tscene)), tscene, coords, target)
-    _, step_plain = make_train_step(cfg, tscene, optimizer=_sgd_on_kd(0.1), device="cpu")
+    _, step_plain = make_train_step(None, cfg, tscene, optimizer=_sgd_on_kd(0.1), device="cpu")
     _, plain = step_plain(init_state(extract_params(tscene)), tscene, coords, target)
     assert np.isfinite(float(blurred)) and 0.0 < float(blurred) < float(plain)
     assert bool(state.params["kd"].grad.abs().sum() > 0)
@@ -277,17 +277,17 @@ def test_loss_blur(tscene):
 
 def test_match_and_missing_device_raise(tscene):
     with pytest.raises(ValueError, match="quantize='smooth'"):
-        make_train_step(RenderConfig(quantize="match"), tscene, device="cpu")
+        make_train_step(None, RenderConfig(quantize="match"), tscene, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            make_train_step(RenderConfig(quantize="smooth"), tscene)
+            make_train_step(None, RenderConfig(quantize="smooth"), tscene)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             init_train_state(tscene)
 
 
 def test_checkpoint_roundtrip_and_overwrite(tscene, tmp_path):
     cfg = RenderConfig(backend="cuda", **KW)
-    init_state, step_fn = make_train_step(cfg, tscene, device="cpu")
+    init_state, step_fn = make_train_step(None, cfg, tscene, device="cpu")
     state = init_train_state(tscene, device="cpu")
     assert isinstance(state, TrainState) and state.step == 0
     ckdir = str(tmp_path / "ckpts")
