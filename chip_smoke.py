@@ -31,6 +31,15 @@ shapes the renders give it, and drives every ported path through
   `lights_rgb` from a target rendered at the true parameters, the same first
   3 steps with `remat=False` beside them, one step with the vertices free too, and a
   save / resume round trip of the train state;
+- the file entry (`[entry]`): the CPU-mode sphere scene written as `.svati`
+  text, parsed by the native parser (built with native="force") and by the
+  Python parser, both equal to the scene leaf for leaf; `render(path,
+  out.ppm)` byte-equal to `ppm_bytes` of SceneRenderer's frame, launching
+  what that frame launched; the native PPM and PNG writers byte-identical to
+  the Python writers; the command line in-process with `--unroll static
+  --profile DIR --time`, whose trace must hold the port's kernels; and
+  `utils.inspect` with `--octree --memory`. Parse, set-up, call and writer
+  times are printed;
 - sharding (`parallel/`): world size 1 through `render_scene_sharded` and
   `make_sharded_renderer` on the CPU-mode sphere frame at 512x512, bit-equal
   to `SceneRenderer`'s frame and timed beside it in turns (the sharded
@@ -55,6 +64,8 @@ whenever those outlast the kernel. `device_ms` is the device's alone: the
 same calls captured into one CUDA graph and replayed between two events.
 `library_ms` and `library_device_ms` are the same two readings of the one
 PyTorch call that computes the same function (K3: `torch.index_select`).
+`plain_ms` of a sweep is its plain version's one reference run, timed by
+CUDA events. The timing helpers are `utils.profiling`'s.
 Frames and training steps are host wall-clock times around synchronised
 calls. Every sweep
 (K1, K2, K4, K5, K6) is also run twice on the same inputs (its combine across
@@ -76,9 +87,12 @@ device's busy share, and K3's wrapper's host time by its parts at 4,096 and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import io
 import json
+import os
 import socket
 import subprocess
 import sys
@@ -89,12 +103,21 @@ import types
 import numpy as np
 import torch
 
-from raytracing_gpu_tpu_torch import RenderConfig, SceneRenderer, render_image
+from raytracing_gpu_tpu_torch import (
+    RenderConfig,
+    SceneRenderer,
+    parse_scene,
+    render,
+    render_image,
+)
+from raytracing_gpu_tpu_torch.__main__ import main as cli_main
 from raytracing_gpu_tpu_torch.csrc import build
 from raytracing_gpu_tpu_torch.models.procedural import (
     make_sphere_grid_scene,
     make_sphere_scene,
 )
+from raytracing_gpu_tpu_torch.native import build as native_build
+from raytracing_gpu_tpu_torch.native import svati as native_lib
 from raytracing_gpu_tpu_torch.ops import camera as camera_ops
 from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
 from raytracing_gpu_tpu_torch.ops.intersect import collide
@@ -116,7 +139,11 @@ from raytracing_gpu_tpu_torch.parallel.checkpoint import (
 from raytracing_gpu_tpu_torch.parallel.render import frame_inputs, split_scene
 from raytracing_gpu_tpu_torch.parallel.train import PARAM_KEYS
 from raytracing_gpu_tpu_torch.render import _pick_block, _swiz_ray_ids
+from raytracing_gpu_tpu_torch.utils import profiling
 from raytracing_gpu_tpu_torch.utils.compare import assert_images_close
+from raytracing_gpu_tpu_torch.utils.image import ppm_bytes, write_png, write_ppm
+from raytracing_gpu_tpu_torch.utils.inspect import main as inspect_main
+from raytracing_gpu_tpu_torch.utils.profiling import cuda_ms, device_ms, timed_once
 
 SOURCE = "raytracing_gpu_tpu_torch/csrc/intersect.cu"
 PALLAS = "raytracing_gpu_tpu/ops/pallas_intersect.py"
@@ -148,49 +175,6 @@ T_START = time.perf_counter()
 def say(phase: str, msg: str) -> None:
     """One line of the report, with the seconds since the script started."""
     print(f"[{phase}] {time.perf_counter() - T_START:6.1f}s {msg}", flush=True)
-
-
-def cuda_ms(fn, iters: int) -> float:
-    """Mean CUDA-event milliseconds per call over `iters` calls, after one
-    warm-up call."""
-    fn()
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def timed_once(fn):
-    """(result, CUDA-event milliseconds) of one call of `fn`."""
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    out = fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(stop)
-
-
-def device_ms(fn, launches: int = 20, replays: int = 5) -> float:
-    """Device-only milliseconds per call: `launches` calls captured into one
-    CUDA graph, the graph replayed `replays` times between two events. No
-    host work of the wrapper is inside the window."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    graph.replay()
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / (launches * replays)
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -273,11 +257,11 @@ def require_sweep_equal(name, got, ref, what):
     return got, ref
 
 
-def check_sweep(name, rays, pack, iters, what, plain_once=False):
+def check_sweep(name, rays, pack, iters, what):
     """K1 or K2 against its plain version on one packed ray batch:
     bit-equal distances (and equal slots for K1), and the kernel against
-    itself on a second run. `plain_once` times the plain version by its one
-    reference run (a full chunk against the grid takes seconds)."""
+    itself on a second run. The plain version is timed by its one reference
+    run (all pairs: a full chunk against the grid takes seconds)."""
     args = sweep_args(rays, pack)
     kern, plain = SWEEPS[name]
     ref, plain_ms = timed_once(lambda: plain(*args))
@@ -291,7 +275,7 @@ def check_sweep(name, rays, pack, iters, what, plain_once=False):
                     sweep_bytes(Rp, Tp, 8 if name == "nearest_hit" else 4))
     res = dict(max_abs_err=max_err(got, ref), ms=cuda_ms(lambda: kern(*args), iters),
                device_ms=device_ms(lambda: kern(*args)),
-               plain_ms=plain_ms if plain_once else cuda_ms(lambda: plain(*args), 2),
+               plain_ms=plain_ms,
                bound_ms=bms, bound_by=by, library_ms=None, library_device_ms=None)
     say("kernels", f"{name} ({what}): {Rp} rays x {Tp} triangles, {kept}/"
         f"{mask.numel()} pair tiles kept, {int(torch.isfinite(ref).sum())} hits: "
@@ -354,7 +338,7 @@ UNITS_PER_TILE = 4  # a kept pair tile is scanned as four 64-triangle units
 PAIRS_PER_UNIT = PAIRS_PER_TILE // UNITS_PER_TILE
 
 
-def check_any_hit(rays, pack, iters, what, plain_once=False):
+def check_any_hit(rays, pack, iters, what):
     """K4 against its plain version and against `nearest_dist < inf`, and
     against itself on a second run: equal exactly. Some ray tile must hold
     occluded and unoccluded live rays together (the flag flip and the live
@@ -392,8 +376,7 @@ def check_any_hit(rays, pack, iters, what, plain_once=False):
     bms, by = bound(n_walked * PAIRS_PER_UNIT * OPS_PER_PAIR, sweep_bytes(Rp, Tp, 1))
     res = dict(max_abs_err=0.0, ms=cuda_ms(lambda: ck.any_hit(*args), iters),
                device_ms=device_ms(lambda: ck.any_hit(*args)),
-               plain_ms=plain_ms if plain_once
-               else cuda_ms(lambda: ck.any_hit_plain(*args), 2),
+               plain_ms=plain_ms,
                bound_ms=bms, bound_by=by, library_ms=None, library_device_ms=None,
                k2_ms=cuda_ms(lambda: ck.nearest_dist(*args), iters),
                k2_device_ms=device_ms(lambda: ck.nearest_dist(*args)))
@@ -446,10 +429,10 @@ MATMULS = {"nearest_hit_matmul": (ck.nearest_hit_matmul, ck.nearest_hit_matmul_p
            "nearest_dist_matmul": (ck.nearest_dist_matmul, ck.nearest_dist_matmul_plain)}
 
 
-def check_matmul(name, rays, pack, iters, what, plain_once=False):
+def check_matmul(name, rays, pack, iters, what):
     """K5 or K6 against its plain version on one recentred ray batch:
     bit-equal distances and slots, also on a second run; K5's winners
-    against K1's."""
+    against K1's. The plain version is timed by its one reference run."""
     o, d = rays
     c = ck.live_centroid(o)
     op, dp, R = ck.pack_rays(o, d)
@@ -486,7 +469,7 @@ def check_matmul(name, rays, pack, iters, what, plain_once=False):
                     sweep_bytes(Rp, Tp, 8 if want_idx else 4))
     res = dict(max_abs_err=max_err(got, ref), ms=cuda_ms(lambda: kern(*args), iters),
                device_ms=device_ms(lambda: kern(*args)),
-               plain_ms=plain_ms if plain_once else cuda_ms(lambda: plain(*args), 2),
+               plain_ms=plain_ms,
                bound_ms=bms, bound_by=by, library_ms=None, library_device_ms=None)
     say("kernels", f"{name} ({what}): {Rp} rays x {Tp} triangles, {kept}/"
         f"{mask.numel()} pair tiles kept, {int(torch.isfinite(ref).sum())} hits: "
@@ -618,25 +601,26 @@ def check_kernels(dev):
     full = cpu_primary_rays(grid, chunk)
     what = "grid, one full chunk"
     results["grid_chunk"] = {
-        name: check_sweep(name, full, grid_pack, 10, what, plain_once=True)
-        for name in SWEEPS}
-    results["grid_chunk"]["any_hit"] = check_any_hit(full, grid_pack, 10, what,
-                                                     plain_once=True)
+        name: check_sweep(name, full, grid_pack, 10, what) for name in SWEEPS}
+    results["grid_chunk"]["any_hit"] = check_any_hit(full, grid_pack, 10, what)
     for name in MATMULS:
-        results["grid_chunk"][name] = check_matmul(name, full, grid_pack, 10, what,
-                                                   plain_once=True)
+        results["grid_chunk"][name] = check_matmul(name, full, grid_pack, 10, what)
     return results
 
 
+def wall_ms(fn):
+    """(result, host milliseconds of one call, synchronised with the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def time_frames(renderer, n: int):
-    times = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = renderer.render_device()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return img, times
+    """(the last frame, host milliseconds of each of n frames)."""
+    runs = [wall_ms(renderer.render_device) for _ in range(n)]
+    return runs[-1][0], [ms for _, ms in runs]
 
 
 def check_image(img, w, h):
@@ -724,35 +708,20 @@ def own_kernel(name: str):
 
 def profile_call(fn, what) -> int:
     """Trace one warm call (a frame, a training step): kernel launches
-    (returned), the device's busy share (union of kernel intervals over the
-    call's host wall time) and the time in the port's own kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise AssertionError("the profiler recorded no device activity")
-    busy_us, end = 0.0, float("-inf")
-    for s, e in sorted((k.time_range.start, k.time_range.end) for k in kernels):
-        busy_us += max(0.0, e - max(s, end))
-        end = max(end, e)
+    (returned), the device's busy share (`utils.profiling.profile_call`) and
+    the time in the port's own kernels."""
+    prof = profiling.profile_call(fn)
     own = {}
-    for k in kernels:
+    for k in prof.kernels:
         tag = own_kernel(k.name)
         if tag is not None:
             n, us = own.get(tag, (0, 0.0))
             own[tag] = (n + 1, us + k.time_range.elapsed_us())
-    say("profile", f"{what}: profiled call {wall_ms:.1f} ms, {len(kernels)} "
-        f"device kernels and copies, device busy {busy_us / 1e3:.1f} ms = "
-        f"{busy_us / 10 / wall_ms:.1f}% of it; own kernels "
+    say("profile", f"{what}: profiled call {prof.wall_ms:.1f} ms, {len(prof.kernels)} "
+        f"device kernels and copies, device busy {prof.busy_ms:.1f} ms = "
+        f"{100 * prof.busy_share:.1f}% of it; own kernels "
         + ", ".join(f"{t} {us / 1e3:.2f} ms in {n}" for t, (n, us) in sorted(own.items())))
-    return len(kernels)
+    return len(prof.kernels)
 
 
 def host_us(fn, n: int = 2000) -> float:
@@ -1082,6 +1051,171 @@ def run_training_phases(dev, smi, want_profile, results):
 
 
 # ---------------------------------------------------------------------------
+# The file entry: .svati through the native parser, render(), the writers,
+# the CLI with --profile, inspect
+# ---------------------------------------------------------------------------
+
+LIGHT_KEYWORDS = ("a_light", "d_light", "p_light")  # AMBIENT, DIRECTIONAL, POINT
+
+
+def svati_text(scene) -> str:
+    """A scene of CPU tensors as `.svati` text that parses back to it leaf
+    for leaf: every float as %.9g (exact for float32), each object's
+    materials before its vertices, and its valid triangles written in
+    reverse order with their vertices (and normals) as c, b, a, which undoes
+    the parser's LIFO rebuild. Objects must own a triangle."""
+    def nums(values) -> str:
+        return " ".join("%.9g" % x for x in values)
+
+    cam, lights, geo, mat = scene.camera, scene.lights, scene.geometry, scene.materials
+    lines = [f"camera {cam.width} {cam.height} " + nums(
+        [*cam.position.tolist(), *cam.u.tolist(), *cam.v.tolist(), float(cam.fov)])]
+    for kind, rgb, v in zip(lights.kind, lights.rgb.tolist(), lights.v.tolist()):
+        lines.append(f"{LIGHT_KEYWORDS[kind]} " + nums(rgb if kind == 0 else rgb + v))
+    owner = torch.where(geo.valid, geo.tri_obj, -1)
+    for i in range(scene.n_objects):
+        tris = torch.nonzero(owner == i).flatten().flip(0)
+        if not len(tris):
+            raise ValueError(f"object {i} owns no triangle")
+        lines.append(f"object {3 * len(tris)}")
+        lines += [f"{key} {nums(getattr(mat, key.lower())[i].reshape(-1).tolist())}"
+                  for key in ("Ka", "Kd", "Ks", "Ns", "Ni", "Nr", "d")]
+        for key, table in (("v", geo.vertices), ("vn", geo.normals)):
+            lines += [f"{key} {nums(p)}" for p in table[tris].flip(1).reshape(-1, 3).tolist()]
+    return "\n".join(lines) + "\n"
+
+
+def require_same_scene(got, want, what):
+    """Every leaf of two scenes equal (tensors bit for bit)."""
+    def leaves(scene):
+        for part in ("camera", "lights", "geometry", "materials"):
+            obj = getattr(scene, part)
+            for f in dataclasses.fields(obj):
+                yield f"{part}.{f.name}", getattr(obj, f.name)
+        yield "n_triangles", scene.n_triangles
+        yield "n_objects", scene.n_objects
+
+    for (name, a), (_, b) in zip(leaves(got), leaves(want), strict=True):
+        same = (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                and isinstance(b, torch.Tensor) else a == b)
+        if not same:
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def trace_kernels(trace_dir) -> dict:
+    """{kernel name: device events} of the one Chrome trace in `trace_dir`."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    if len(files) != 1:
+        raise AssertionError(f"expected one trace file in {trace_dir}, found {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    names = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    return names
+
+
+def check_entry(scene, cfg, renderer, ref_img, dev, kind, smi):
+    """The sphere frame through the file entry points, from a `.svati` file
+    written from `scene`: the native parser (built with native="force")
+    against the Python parser and the scene itself, leaf for leaf;
+    `render(path, out.ppm)` byte-equal to `ppm_bytes` of `ref_img`
+    (SceneRenderer's frame of the same scene and config) with its launches
+    counted; the native PNG writer against the Python writer; the CLI
+    in-process with --unroll static --profile DIR --time; inspect --octree
+    --memory. Returns the launches of the render() call."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "spheres.svati")
+        with open(path, "w") as f:
+            f.write(svati_text(scene))
+        t0 = time.perf_counter()
+        native_lib.library("force")
+        say("entry", f"native library {native_build.library_path()} ready in "
+            f"{time.perf_counter() - t0:.2f} s (g++ -O2, -lz; native=\"force\")")
+        t0 = time.perf_counter()
+        nat = parse_scene(path, native="force")
+        t_nat = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py = parse_scene(path, native="never")
+        t_py = time.perf_counter() - t0
+        require_same_scene(nat, py, "native parse against the Python parse")
+        require_same_scene(nat, scene, "native parse against make_sphere_scene")
+        say("entry", f"{os.path.getsize(path)} bytes of .svati, {nat.n_objects} objects, "
+            f"{nat.n_triangles} triangles: native parse {t_nat * 1e3:.1f} ms, Python "
+            f"parse {t_py * 1e3:.1f} ms, equal leaf for leaf to each other and to "
+            "make_sphere_scene's tensors")
+
+        # set-up: the scene to the card and the kernel pack
+        _, setup_ms = wall_ms(lambda: SceneRenderer(nat, cfg, dev))
+        ppm = os.path.join(tmp, "out.ppm")
+        ck.reset_launch_counts()
+        _, entry_ms = wall_ms(lambda: render(path, ppm, cfg, device=dev))
+        counts = dict(ck.LAUNCHES)
+        frame = ref_img.cpu().numpy()
+        if open(ppm, "rb").read() != ppm_bytes(frame):
+            raise AssertionError("render(): the PPM differs from ppm_bytes of "
+                                 "SceneRenderer's frame")
+        for name in ("nearest_hit", "nearest_dist", "fetch_rows"):
+            if counts[name] <= 0:
+                raise AssertionError(f"render() never launched {name}")
+        u8_frame = np.trunc(frame).astype(np.uint8)
+        times = {}
+        for fmt, write, img in (("ppm", write_ppm, frame), ("png", write_png, u8_frame)):
+            for native in ("force", "never"):
+                out = os.path.join(tmp, f"{native}.{fmt}")
+                t0 = time.perf_counter()
+                write(out, img, native=native)
+                times[fmt, native] = (time.perf_counter() - t0) * 1e3
+        for fmt in ("ppm", "png"):
+            a, b = (open(os.path.join(tmp, f"{n}.{fmt}"), "rb").read()
+                    for n in ("force", "never"))
+            if a != b:
+                raise AssertionError(f"the native {fmt} writer's bytes differ from "
+                                     "the Python writer's")
+        png = open(os.path.join(tmp, "never.png"), "rb").read()
+        frame_ms = float(np.median(time_frames(renderer, 1)[1]))
+        say("entry", f"render(.svati -> .ppm), spheres 512x512, cuda: byte-equal to "
+            f"ppm_bytes of SceneRenderer's frame; launches {counts}; {entry_ms:.1f} ms "
+            f"for the call (SceneRenderer set-up alone {setup_ms:.1f} ms, one frame "
+            f"beside it {frame_ms:.1f} ms); writers native / Python: PPM "
+            f"{times['ppm', 'force']:.1f} / {times['ppm', 'never']:.1f} ms, PNG "
+            f"{times['png', 'force']:.1f} / {times['png', 'never']:.1f} ms "
+            f"({len(png)} bytes), byte-identical; {smi}")
+
+        # the command line in-process, traced
+        cli_png, trace_dir = os.path.join(tmp, "cli.png"), os.path.join(tmp, "profile")
+        t0 = time.perf_counter()
+        rc = cli_main([path, cli_png, "--unroll", "static", "--profile", trace_dir,
+                       "--time"])
+        cli_s = time.perf_counter() - t0
+        if rc != 0 or open(cli_png, "rb").read() != png:
+            raise AssertionError(f"CLI --profile: exit {rc}, or its PNG differs")
+        kernels = trace_kernels(trace_dir)
+        ours = {t: sum(n for k, n in kernels.items() if own_kernel(k) == t)
+                for t in ("sweep_kernel<NEAREST_HIT>", "sweep_kernel<NEAREST_DIST>",
+                          "fetch_rows_kernel")}
+        if not all(ours.values()):
+            raise AssertionError(f"the CLI's trace lacks the port's kernels: {ours}")
+        say("entry", f"CLI --unroll static --profile --time: exit 0, PNG equal, "
+            f"{cli_s:.2f} s; its trace holds {sum(kernels.values())} device kernels, "
+            f"the port's {ours}")
+
+        # inspect
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = inspect_main([path, "--octree", "--memory"])
+        lines = buf.getvalue().splitlines()
+        memory = [ln for ln in lines if ln.startswith("cuda:")]
+        if rc != 0 or not memory or kind not in memory[0] or not any(
+                ln.startswith("octree: ") for ln in lines):
+            raise AssertionError("inspect: " + "\n".join(lines[:8]))
+        say("entry", f"inspect --octree --memory: exit 0, {len(lines)} lines; "
+            + " | ".join(lines[:1] + memory + [ln for ln in lines if ln.startswith("octree")]))
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Sharding: world size 1 through the sharded entry points, and two gloo
 # ranks sharing the card
 # ---------------------------------------------------------------------------
@@ -1296,6 +1430,13 @@ def main(argv) -> int:
     if want_profile:
         traced["cuda"] = profile_call(renderer.render_device,
                                       "CPU mode, spheres 512x512, cuda")
+
+    # ---- the file entry on the same scene and config: .svati, the native
+    # parser and writers, render(), the CLI with --profile, inspect
+    launches["entry"] = check_entry(spheres512, cfg, renderer, cuda_img, dev, kind, smi)
+    if launches["entry"] != launches["cpu_mode"]:
+        raise AssertionError(f"render() launched {launches['entry']}, SceneRenderer's "
+                             f"frame {launches['cpu_mode']}")
 
     # ---- sharding: world size 1 through the sharded entry points on the
     # same frame, the sharded train step, two gloo ranks sharing the card

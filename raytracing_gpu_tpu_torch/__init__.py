@@ -22,7 +22,12 @@ from raytracing_gpu_tpu_torch.models.scene import (
     Scene,
     scene_from_numpy,
 )
-from raytracing_gpu_tpu_torch.render import SceneRenderer, render_image, render_scene
+from raytracing_gpu_tpu_torch.render import (
+    SceneRenderer,
+    render,
+    render_image,
+    render_scene,
+)
 
 __all__ = [
     "RenderConfig",
@@ -34,6 +39,7 @@ __all__ = [
     "scene_from_numpy",
     "parse_scene",
     "parse_scene_text",
+    "render",
     "render_scene",
     "render_image",
     "SceneRenderer",

@@ -5,6 +5,8 @@
 
 `--device` defaults to cuda and fails when CUDA is not available; only an
 explicit `--device cpu` renders on the CPU (with the kernels' plain versions).
+`--profile DIR` writes a torch.profiler Chrome trace of the render into DIR,
+one file per process.
 
 Sharded over N * S processes, one per device, rays over N tiles and the
 triangles over S scene shards; rank 0 writes the image:
@@ -16,6 +18,7 @@ triangles over S scene shards; rank 0 writes the image:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -51,11 +54,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gpu-mode bounce cap (gpu/raytracer.cu:113)")
     p.add_argument("--ray-chunk", type=int, default=65536,
                    help="rays traced per chunk")
+    p.add_argument("--unroll", choices=["auto", "while", "static"],
+                   default="auto",
+                   help="bounce-loop strategy of the differentiable path: "
+                   "static (or auto with quantize=smooth) lets remat "
+                   "checkpoint each bounce step; no effect on a forward render")
     p.add_argument("--tiles", type=int, default=0,
                    help="shard rays over N processes (0 = one process); "
                    "launch the processes with torchrun")
     p.add_argument("--scene-shards", type=int, default=1,
                    help="shard triangles over S processes (scene axis)")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="write a torch.profiler Chrome trace of the render to "
+                   "DIR (one file per process)")
     p.add_argument("--time", action="store_true", help="print render time")
     return p
 
@@ -91,20 +102,22 @@ def main(argv=None) -> int:
     from raytracing_gpu_tpu_torch.models.parser import parse_scene
     from raytracing_gpu_tpu_torch.render import render_scene
     from raytracing_gpu_tpu_torch.utils import image as image_io
+    from raytracing_gpu_tpu_torch.utils import profiling
 
     cfg = RenderConfig(mode=args.mode, quantize=args.quantize,
                        partitioning=args.partitioning, backend=args.backend,
                        aliasing=args.aliasing, max_bounce=args.max_bounce,
-                       ray_chunk=args.ray_chunk)
+                       ray_chunk=args.ray_chunk, unroll=args.unroll)
     scene = parse_scene(args.input)
     mesh = _sharded_mesh(args) if args.tiles else None
     t0 = time.perf_counter()
-    if mesh is None:
-        img = render_scene(scene, cfg, device=args.device)
-    else:
-        from raytracing_gpu_tpu_torch.parallel import render_scene_sharded
+    with profiling.trace(args.profile) if args.profile else contextlib.nullcontext():
+        if mesh is None:
+            img = render_scene(scene, cfg, device=args.device)
+        else:
+            from raytracing_gpu_tpu_torch.parallel import render_scene_sharded
 
-        img = render_scene_sharded(scene, cfg, mesh, device=args.device)
+            img = render_scene_sharded(scene, cfg, mesh, device=args.device)
     dt = time.perf_counter() - t0
     if _rank() != 0:
         return 0  # every rank holds the image; rank 0 writes it

@@ -1,11 +1,13 @@
-"""`.svati` scene parser (pure Python).
+"""`.svati` scene parser.
 
 The JAX package's parser (models/parser.py:47-221), which reproduces the
 reference grammar and its quirks: whitespace tokens with `#` comments to end
 of line, `object N` with N the vertex count, LIFO triangle rebuild (file
 triangle (a,b,c) stored as (c,b,a), triangles in reverse order), material
-defaults per init_object, and an error on unknown keywords. The native C++
-tokenizer of the JAX package is not ported.
+defaults per init_object, and an error on unknown keywords. The Python code
+here is the semantic definition; `parse_scene` takes the native C++
+tokenizer (`native/svati_parser.cpp`, the same grammar, numbers parsed with
+strtod and cast to float as `float()` then float32 does) when it is built.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from raytracing_gpu_tpu_torch.models.scene import (
     build_scene,
     make_camera,
 )
+from raytracing_gpu_tpu_torch.native import svati as native_lib
 
 
 class SvatiParseError(ValueError):
@@ -149,8 +152,13 @@ def parse_scene_text(
     return build_scene(camera, lights, objects, pad_triangles, pad_objects)
 
 
-def parse_scene(path: str, pad_triangles: int = 128, pad_objects: int = 8) -> Scene:
-    """Parse a `.svati` file."""
+def parse_scene(path: str, pad_triangles: int = 128, pad_objects: int = 8,
+                native: str = "auto") -> Scene:
+    """Parse a `.svati` file. `native`: "auto" takes the native tokenizer
+    when the library builds (RGT_NATIVE=0 turns it off), "force" raises
+    RuntimeError where it cannot, "never" parses in Python."""
+    if native_lib.library(native) is not None:
+        return native_lib.parse_scene_native(path, pad_triangles, pad_objects)
     with open(path, "r") as f:
         text = f.read()
     return parse_scene_text(text, pad_triangles, pad_objects)

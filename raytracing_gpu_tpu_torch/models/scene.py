@@ -53,6 +53,10 @@ class Lights(_Tensors):
     rgb: torch.Tensor
     v: torch.Tensor
 
+    @property
+    def count(self) -> int:
+        return len(self.kind)
+
 
 @dataclasses.dataclass
 class Geometry(_Tensors):
@@ -74,6 +78,10 @@ class Geometry(_Tensors):
     obj_aabb: torch.Tensor | None = None
     octree: _Tensors | None = None
 
+    @property
+    def padded_count(self) -> int:
+        return self.vertices.shape[0]
+
 
 @dataclasses.dataclass
 class Materials(_Tensors):
@@ -87,6 +95,10 @@ class Materials(_Tensors):
     ni: torch.Tensor
     nr: torch.Tensor
     d: torch.Tensor
+
+    @property
+    def padded_count(self) -> int:
+        return self.ns.shape[0]
 
 
 @dataclasses.dataclass

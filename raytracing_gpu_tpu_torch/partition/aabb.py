@@ -27,6 +27,13 @@ def compute_object_aabbs(vertices, tri_obj, valid, n_objects: int):
     return torch.stack([omin, omax], 1)
 
 
+def objects_valid(tri_obj, valid, n_objects: int):
+    """(O,) bool: an object is valid iff it owns a valid triangle (padding
+    triangles carry tri_obj 0)."""
+    owned = torch.zeros((n_objects,), dtype=torch.int64, device=valid.device)
+    return owned.index_add(0, tri_obj.long(), valid.long()) > 0
+
+
 def compute_scene_aabb(obj_aabbs, obj_valid):
     """(2,3) bounds of the valid objects (find_scene_scale, octree.cu:51-115)."""
     mins = torch.where(obj_valid[:, None], obj_aabbs[:, 0], INF).amin(0)

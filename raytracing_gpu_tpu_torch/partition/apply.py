@@ -12,6 +12,7 @@ from raytracing_gpu_tpu_torch.models.scene import Scene
 from raytracing_gpu_tpu_torch.partition.aabb import (
     compute_object_aabbs,
     compute_scene_aabb,
+    objects_valid,
 )
 from raytracing_gpu_tpu_torch.partition.octree import build_octree, node_cull_tables
 
@@ -27,10 +28,7 @@ def with_accel(scene: Scene, partitioning: str):
         raise ValueError(f"unknown partitioning {partitioning!r}")
     geo = scene.geometry
     n_obj = scene.materials.ns.shape[0]
-    # an object is valid iff it owns a valid triangle (padding triangles
-    # carry tri_obj 0)
-    obj_valid = torch.zeros((n_obj,), dtype=torch.int64, device=geo.valid.device)
-    obj_valid = obj_valid.index_add(0, geo.tri_obj.long(), geo.valid.long()) > 0
+    obj_valid = objects_valid(geo.tri_obj, geo.valid, n_obj)
     aabbs = compute_object_aabbs(geo.vertices, geo.tri_obj, geo.valid, n_obj)
     if partitioning == "aabb":
         return dataclasses.replace(

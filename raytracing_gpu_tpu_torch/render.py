@@ -38,6 +38,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from raytracing_gpu_tpu_torch.config import RenderConfig
+from raytracing_gpu_tpu_torch.models.parser import parse_scene
 from raytracing_gpu_tpu_torch.models.scene import Scene
 from raytracing_gpu_tpu_torch.ops import camera as camera_ops
 from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
@@ -50,6 +51,7 @@ from raytracing_gpu_tpu_torch.ops.intersect import (
 )
 from raytracing_gpu_tpu_torch.ops.shading import PARKED, material_rows, shade
 from raytracing_gpu_tpu_torch.partition.apply import with_accel
+from raytracing_gpu_tpu_torch.utils import image as image_io
 
 
 def resolve_device(device) -> torch.device:
@@ -421,3 +423,15 @@ def render_image(scene: Scene, cfg: RenderConfig | None = None,
     if cfg.mode == "cpu":
         return _render_cpu_mode(scene, cfg, depth)
     return _render_gpu_mode(scene, cfg)
+
+
+def render(input_path: str, output_path: str, cfg: RenderConfig = RenderConfig(),
+           device="cuda") -> None:
+    """Parse, render, write: `rt in.svati out.ppm` (cpu/rt.c:5-10) or
+    `rt in.svati out.png` (gpu/rt.cpp:54-97). A `.png` path gets the image
+    truncated to uint8 as RGBA PNG; any other path gets ASCII P3."""
+    img = render_scene(parse_scene(input_path), cfg, device=device)
+    if output_path.endswith(".png"):
+        image_io.write_png(output_path, np.trunc(img).astype(np.uint8))
+    else:
+        image_io.write_ppm(output_path, img)

@@ -30,6 +30,10 @@ class ImageDiff:
     off_edge_run: int = 0  # longest row or column run of the large ones
 
     @property
+    def frac_diff(self) -> float:
+        return self.n_diff / max(self.total, 1)
+
+    @property
     def frac_bad(self) -> float:
         return self.n_bad / max(self.total, 1)
 
@@ -38,6 +42,23 @@ class ImageDiff:
                 f"diff={self.n_diff}/{self.total} >{self.tol}: {self.n_bad} "
                 f"({100 * self.frac_bad:.3f}%); off-edge {self.n_off_edge} "
                 f"(max|d|={self.off_edge_mag}, run={self.off_edge_run})")
+
+
+def diff_images(a: np.ndarray, b: np.ndarray, tol: int = 1) -> ImageDiff:
+    """Whole-image difference statistics of two (H,W,C) integer images:
+    largest and mean channel difference, pixels that differ at all and by
+    more than `tol` (the off-edge fields stay 0)."""
+    a = np.asarray(a, np.int32)
+    b = np.asarray(b, np.int32)
+    if a.shape != b.shape:
+        raise ValueError(f"shape mismatch {a.shape} vs {b.shape}")
+    d = np.abs(a - b)
+    per_pix = d.max(axis=-1)
+    return ImageDiff(
+        max_abs=int(d.max()) if d.size else 0,
+        mean_abs=float(d.mean()) if d.size else 0.0,
+        n_diff=int((per_pix > 0).sum()), n_bad=int((per_pix > tol).sum()),
+        total=int(per_pix.size), tol=tol)
 
 
 def edge_mask(img: np.ndarray, thresh: int = 8, dilate: int = 1) -> np.ndarray:
@@ -85,14 +106,11 @@ def assert_images_close(a, b, tol: int = 1, max_frac_diff: float = 0.05,
     b = np.asarray(b, np.int32)
     if a.shape != b.shape:
         raise ValueError(f"shape mismatch {a.shape} vs {b.shape}")
+    d = diff_images(a, b, tol=tol)
     per_pix = np.abs(a - b).max(axis=-1)
     off_edge_bad = (per_pix > tol) & ~edge_mask(b, thresh=edge_thresh)
-    d = ImageDiff(
-        max_abs=int(per_pix.max()) if per_pix.size else 0,
-        mean_abs=float(np.abs(a - b).mean()) if per_pix.size else 0.0,
-        n_diff=int((per_pix > 0).sum()), n_bad=int((per_pix > tol).sum()),
-        total=int(per_pix.size), tol=tol,
-        n_off_edge=int(off_edge_bad.sum()),
+    d = dataclasses.replace(
+        d, n_off_edge=int(off_edge_bad.sum()),
         off_edge_mag=int(per_pix[off_edge_bad].max()) if off_edge_bad.any() else 0,
         # only outliers above run_mag_floor count toward a run: a displaced
         # silhouette in a mirror gives short strings of small differences

@@ -217,13 +217,16 @@ def case_checkpoint(out, rank):
 
 
 def case_cli(out, rank):
-    """The CLI inside the group: --tiles 2, and --tiles 1 --scene-shards 2;
-    rank 0 writes each file."""
+    """The CLI inside the group: --tiles 2, --tiles 1 --scene-shards 2, and
+    --tiles 2 with --profile (each rank writes its own trace); rank 0 writes
+    each image."""
     from raytracing_gpu_tpu_torch.__main__ import main
 
     scene_file = os.path.join(out, "scene.svati")
     for name, flags in (("tiles2", ["--tiles", "2"]),
-                        ("shards2", ["--tiles", "1", "--scene-shards", "2"])):
+                        ("shards2", ["--tiles", "1", "--scene-shards", "2"]),
+                        ("tiles2_profiled", ["--tiles", "2", "--profile",
+                                             os.path.join(out, "traces")])):
         code = main([scene_file, os.path.join(out, f"{name}.ppm"), "--device", "cpu",
                      *flags])
         if code != 0:

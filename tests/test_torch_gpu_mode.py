@@ -182,7 +182,7 @@ def test_cli_gpu_mode_writes_the_jax_bytes(tmp_path):
                 "--device", "cpu"], tmp_path)
     assert res.returncode == 0, res.stderr
     from raytracing_gpu_tpu.models.parser import parse_scene_text
-    from raytracing_gpu_tpu.utils.image import ppm_bytes
+    from raytracing_gpu_tpu_torch.utils.image import ppm_bytes
 
     want = jrender(parse_scene_text(MINI_SVATI),
                    JConfig(mode="gpu", aliasing=2, max_bounce=3))

@@ -22,6 +22,7 @@ changing any `match` image.
 """
 
 import dataclasses
+import importlib
 import types
 
 import numpy as np
@@ -288,7 +289,8 @@ def test_missed_rays_send_no_gradient_to_their_rows(tscene):
         hits.append(orig_collide(*a, **kw))
         return hits[-1]
 
-    import raytracing_gpu_tpu_torch.render as trender
+    # the module, not the package's `render` function of the same name
+    trender = importlib.import_module("raytracing_gpu_tpu_torch.render")
 
     mp = pytest.MonkeyPatch()
     mp.setattr(ck, "fetch_rows", spy)

@@ -9,6 +9,7 @@ ranks must return the whole image, equal to the single-process render.
 
 import datetime
 import os
+import re
 import socket
 import warnings
 
@@ -173,7 +174,7 @@ def test_sharded_checkpoint_is_the_one_device_checkpoint(group, tmp_path):
                                       want.params["vertices"][r * n:(r + 1) * n].numpy())
 
 
-@pytest.mark.parametrize("name", ["tiles2", "shards2"])
+@pytest.mark.parametrize("name", ["tiles2", "shards2", "tiles2_profiled"])
 def test_cli_sharded_in_a_group(group, tmp_path, name):
     """`--tiles 2` and `--tiles 1 --scene-shards 2` in the 2-process group:
     rank 0 writes the file that one process writes."""
@@ -184,3 +185,12 @@ def test_cli_sharded_in_a_group(group, tmp_path, name):
     assert main([str(scene), str(plain), "--device", "cpu"]) == 0
     with open(os.path.join(group.out, f"{name}.ppm"), "rb") as f:
         assert f.read() == plain.read_bytes()
+
+
+def test_cli_profile_writes_one_trace_per_rank(group):
+    """`--tiles 2 --profile DIR`: each rank's trace lands in DIR under its
+    own name."""
+    group.wait()
+    files = sorted(os.listdir(os.path.join(group.out, "traces")))
+    assert len(files) == 2 and all(f.endswith(".json") for f in files)
+    assert {re.search(r"\.rank(\d+)\.", f).group(1) for f in files} == {"0", "1"}

@@ -259,12 +259,17 @@ def _run(args, cwd, timeout=300):
 
 
 def test_port_never_imports_jax(tmp_path):
+    (tmp_path / "mini.svati").write_text(MINI_SVATI)
     code = (
         "import sys\n"
         "import raytracing_gpu_tpu_torch as p\n"
         "from raytracing_gpu_tpu_torch.models.procedural import make_sphere_scene\n"
         "from raytracing_gpu_tpu_torch.__main__ import main\n"
         "import raytracing_gpu_tpu_torch.csrc.build, raytracing_gpu_tpu_torch.utils.image\n"
+        "import raytracing_gpu_tpu_torch.native.svati, raytracing_gpu_tpu_torch.utils.inspect\n"
+        "import raytracing_gpu_tpu_torch.utils.profiling\n"
+        "parsed = p.parse_scene('mini.svati', native='auto')\n"
+        "assert parsed.n_triangles == 1, parsed.n_triangles\n"
         "scene = make_sphere_scene(4, 4, n_lat=6, n_lon=9)\n"
         "for kw in ({}, {'mode': 'gpu', 'any_hit_min_tris': 0, 'f2b_tiles': 1},\n"
         "           {'backend': 'cuda_matmul'}):\n"
@@ -290,7 +295,7 @@ def test_cli_writes_ppm(tmp_path):
     assert toks[:4] == ["P3", "4", "4", "255"] and len(toks) == 4 + 4 * 4 * 3
     # the same pixels as the JAX package's CLI writer on the same scene
     from raytracing_gpu_tpu.models.parser import parse_scene_text
-    from raytracing_gpu_tpu.utils.image import ppm_bytes
+    from raytracing_gpu_tpu_torch.utils.image import ppm_bytes
 
     want = jrender(parse_scene_text(MINI_SVATI), JConfig())
     assert out.read_bytes() == ppm_bytes(want)
