@@ -6,7 +6,13 @@
 Builds the port's CUDA kernels from raytracing_gpu_tpu_torch/csrc with nvcc,
 checks each of the six against its plain PyTorch version on the card at the
 shapes the renders give it, and drives every ported path through
-`SceneRenderer`:
+`SceneRenderer`. On the card `SceneRenderer` captures its frame into CUDA
+graphs once and replays them (`utils/frame_graph.py`); each of the five
+render cells below (spheres CPU mode, grid, grid with `f2b_tiles=8`, GPU
+mode with any-hit, `cuda_matmul`) holds its graph frame against the eager
+frame of the same config (`unroll="static"`, which stays eager): bit-equal
+images, equal launches per kernel, two replays bit-equal, both timed in
+turns, with the capture's cost and the replays and syncs of a frame:
 
 - CPU mode, backend "cuda": the 4,962-triangle sphere scene and the
   96,000-triangle sphere grid at 512x512 (K1, K2, K3), the kernel render
@@ -35,7 +41,7 @@ shapes the renders give it, and drives every ported path through
   text, parsed by the native parser (built with native="force") and by the
   Python parser, both equal to the scene leaf for leaf; `render(path,
   out.ppm)` byte-equal to `ppm_bytes` of SceneRenderer's frame, launching
-  what that frame launched; the native PPM and PNG writers byte-identical to
+  what that frame and its capture's warm-up launched; the native PPM and PNG writers byte-identical to
   the Python writers; the command line in-process with `--unroll static
   --profile DIR --time`, whose trace must hold the port's kernels; and
   `utils.inspect` with `--octree --memory`. Parse, set-up, call and writer
@@ -52,7 +58,7 @@ shapes the renders give it, and drives every ported path through
   nothing of the two ranks is timed.
 
 Before each of these paths the launch counts are set to 0 and read just
-after its frame. Any failure raises and the script exits non-zero; it also
+after its frame; a graph frame counts each replay's launches. Any failure raises and the script exits non-zero; it also
 exits non-zero when CUDA is not available. On success the last three lines
 of stdout are a JSON object with one entry per kernel, the card's nvidia-smi
 name and power limit, and
@@ -79,9 +85,9 @@ operations over 67 TFLOP/s and its bytes (inputs read once, outputs written
 once) over 3.35 TB/s, the published peaks of an H100 SXM at 700 W; the work
 is counted for this run's data (pair tiles kept by the culling, the
 64-triangle units the any-hit sweep scanned before its early exit).
-`--profile` also traces one warm frame of each path with torch.profiler and
-prints kernel launches (the three paths' side by side at the end) and the
-device's busy share, and K3's wrapper's host time by its parts at 4,096 and
+`--profile` also traces one warm (graph) frame of each path with
+torch.profiler and prints kernel launches (the three paths' side by side at
+the end) and the device's busy share, and K3's wrapper's host time by its parts at 4,096 and
 65,536 rows. Imports torch, numpy and the port only.
 """
 
@@ -138,7 +144,7 @@ from raytracing_gpu_tpu_torch.parallel.checkpoint import (
 )
 from raytracing_gpu_tpu_torch.parallel.render import frame_inputs, split_scene
 from raytracing_gpu_tpu_torch.parallel.train import PARAM_KEYS
-from raytracing_gpu_tpu_torch.render import _pick_block, _swiz_ray_ids
+from raytracing_gpu_tpu_torch.render import _pick_block, _swiz_ray_ids, frame_depth
 from raytracing_gpu_tpu_torch.utils import profiling
 from raytracing_gpu_tpu_torch.utils.compare import assert_images_close
 from raytracing_gpu_tpu_torch.utils.image import ppm_bytes, write_png, write_ppm
@@ -692,6 +698,61 @@ def report_frames(what, renderer, times, n_primary, smi) -> float:
     return ms
 
 
+def check_graph_cell(what, scene, cfg, dev, smi, need, none=(), n_primary=0):
+    """One render cell through `SceneRenderer`'s captured frame (CUDA graphs
+    replayed, `renderer.plan`) against the eager frame of the same config
+    rendered with `unroll="static"`, which stays eager: bit-equal images,
+    the same launches per kernel, two replays bit-equal. Both are timed in
+    turns (graph, eager, eager, graph; host clock around synchronised
+    frames); the capture's cost (ms, graphs, memory the card reserved) and
+    the replays, syncs and bounce steps of a graph frame are printed.
+    Returns (graph renderer, its frame, its launches, graph ms, eager ms)."""
+    graph = SceneRenderer(scene, cfg, dev)
+    plan = graph.plan
+    eager = SceneRenderer(scene, dataclasses.replace(cfg, unroll="static"), dev)
+    if plan is None or plan.graphs != 3 or eager.plan is not None:
+        raise AssertionError(f"{what}: expected a captured frame of 3 graphs beside "
+                             "an eager one")
+    runs = []
+    for r in (graph, eager, eager, graph):
+        ck.reset_launch_counts()
+        img, ms = wall_ms(r.render_device)
+        runs.append((img, ms, dict(ck.LAUNCHES)))
+    (img, tg1, counts), (eimg, te1, ecounts), (_, te2, _), (img2, tg2, counts2) = runs
+    for name in need:
+        if counts[name] <= 0:
+            raise AssertionError(f"{what}: the graph frame never launched {name}")
+    for name in none:
+        if counts[name]:
+            raise AssertionError(f"{what}: the graph frame launched {name} "
+                                 f"{counts[name]} times, expected none")
+    if counts != ecounts or counts2 != counts:
+        raise AssertionError(f"{what}: launches of the graph frame {counts} (again "
+                             f"{counts2}), of the eager frame {ecounts}")
+    if not torch.equal(img, eimg):
+        raise AssertionError(f"{what}: the graph frame is not bit-equal to the eager "
+                             f"frame ({int((img != eimg).any(-1).sum())} pixels differ)")
+    if not torch.equal(img2, img):
+        raise AssertionError(f"{what}: two replays of the frame differ")
+    check_image(img, graph.width, graph.height)
+    f = plan.last_frame
+    warm = {k: n for k, n in plan.warmup_launches.items() if n}
+    ms_g, ms_e = (tg1 + tg2) / 2, (te1 + te2) / 2
+    rate = f", {n_primary / ms_g * 1e3 / 1e6:.3f} M primary rays/s" if n_primary else ""
+    say("render", f"{what} ({scene.n_triangles} tris): graph frame bit-equal to the "
+        f"eager frame (unroll=static) and to its own second replay; launches per frame "
+        f"{counts} in both; ms/frame in turns graph {tg1:.3f}, eager {te1:.3f}, "
+        f"{te2:.3f}, graph {tg2:.3f}: graph {ms_g:.3f}, eager {ms_e:.3f}, eager/graph "
+        f"{ms_e / ms_g:.2f}x{rate}; {plan.graphs} graphs captured in "
+        f"{plan.capture_ms:.1f} ms (warm-up included; launches of the warm-up "
+        f"{warm}), the card reserving "
+        f"{plan.held_bytes / 2**20:.1f} MiB for them and their buffers; per frame "
+        f"{f.replays} replays and {f.syncs} syncs, {plan.n_chunks} chunks of "
+        f"{plan.frame.chunk} rays taking {min(f.steps)}-{max(f.steps)} steps ({sum(f.steps)} "
+        f"in all); {smi}")
+    return graph, img, counts, ms_g, ms_e
+
+
 OWN_KERNELS = ("fetch_rows_kernel", "sweep_list_kernel") + tuple(
     f"sweep_kernel<{kind}>" for kind in ("NEAREST_HIT", "NEAREST_DIST", "ANY_HIT",
                                          "MATMUL_HIT", "MATMUL_DIST"))
@@ -1122,7 +1183,7 @@ def check_entry(scene, cfg, renderer, ref_img, dev, kind, smi):
     against the Python parser and the scene itself, leaf for leaf;
     `render(path, out.ppm)` byte-equal to `ppm_bytes` of `ref_img`
     (SceneRenderer's frame of the same scene and config) with its launches
-    counted; the native PNG writer against the Python writer; the CLI
+    counted (one frame and the capture's warm-up); the native PNG writer against the Python writer; the CLI
     in-process with --unroll static --profile DIR --time; inspect --octree
     --memory. Returns the launches of the render() call."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -1146,8 +1207,8 @@ def check_entry(scene, cfg, renderer, ref_img, dev, kind, smi):
             f"parse {t_py * 1e3:.1f} ms, equal leaf for leaf to each other and to "
             "make_sphere_scene's tensors")
 
-        # set-up: the scene to the card and the kernel pack
-        _, setup_ms = wall_ms(lambda: SceneRenderer(nat, cfg, dev))
+        # set-up: the scene to the card, the kernel pack and the frame's capture
+        setup, setup_ms = wall_ms(lambda: SceneRenderer(nat, cfg, dev))
         ppm = os.path.join(tmp, "out.ppm")
         ck.reset_launch_counts()
         _, entry_ms = wall_ms(lambda: render(path, ppm, cfg, device=dev))
@@ -1177,8 +1238,9 @@ def check_entry(scene, cfg, renderer, ref_img, dev, kind, smi):
         frame_ms = float(np.median(time_frames(renderer, 1)[1]))
         say("entry", f"render(.svati -> .ppm), spheres 512x512, cuda: byte-equal to "
             f"ppm_bytes of SceneRenderer's frame; launches {counts}; {entry_ms:.1f} ms "
-            f"for the call (SceneRenderer set-up alone {setup_ms:.1f} ms, one frame "
-            f"beside it {frame_ms:.1f} ms); writers native / Python: PPM "
+            f"for the call (SceneRenderer set-up alone {setup_ms:.1f} ms, of which the "
+            f"frame's warm-up and capture {setup.plan.capture_ms:.1f} ms; one graph "
+            f"frame beside it {frame_ms:.1f} ms); writers native / Python: PPM "
             f"{times['ppm', 'force']:.1f} / {times['ppm', 'never']:.1f} ms, PNG "
             f"{times['png', 'force']:.1f} / {times['png', 'never']:.1f} ms "
             f"({len(png)} bytes), byte-identical; {smi}")
@@ -1268,7 +1330,8 @@ def check_shard_frame(scene, cfg, renderer, ref_img, smi, want_profile):
     say("shard", f"world size 1, spheres {renderer.width}x{renderer.height}, cuda: "
         "render_scene_sharded and make_sharded_renderer bit-equal to SceneRenderer's "
         f"frame; launches in one sharded frame {counts}; ms/frame in turns: sharded "
-        f"{[round(t, 3) for t in sharded]}, SceneRenderer {[round(t, 3) for t in plain]}, "
+        f"(eager) {[round(t, 3) for t in sharded]}, SceneRenderer (graph frame) "
+        f"{[round(t, 3) for t in plain]}, "
         f"median ratio {np.median(sharded) / np.median(plain):.3f}; {smi}")
     if want_profile:
         profile_call(frame, f"world size 1, sharded frame, spheres {renderer.width}x"
@@ -1417,26 +1480,26 @@ def main(argv) -> int:
     cfg = RenderConfig(backend="cuda")
     spheres512 = make_sphere_scene(512, 512, **SPHERES)
     cpu_rays = 512 * 512 * 4
+    k123 = ("nearest_hit", "nearest_dist", "fetch_rows")
 
-    # ---- CPU mode, backend "cuda": the sphere scene at 512x512
-    renderer = SceneRenderer(spheres512, cfg, dev)
-    cuda_img, launches["cpu_mode"] = counted_frame(
-        renderer, "CPU mode, spheres 512x512, cuda",
-        ("nearest_hit", "nearest_dist", "fetch_rows"))
-    _, times = time_frames(renderer, 2)
-    report_frames(f"CPU mode, spheres 512x512, cuda (depth {renderer.depth})",
-                  renderer, times, cpu_rays, smi)
+    # ---- CPU mode, backend "cuda": the sphere scene at 512x512, its frame
+    # captured and replayed, held against the eager frame
+    renderer, cuda_img, launches["cpu_mode"], _, _ = check_graph_cell(
+        f"CPU mode, spheres 512x512, cuda (depth {frame_depth(spheres512, cfg)})",
+        spheres512, cfg, dev, smi, k123, n_primary=cpu_rays)
     traced = {}
     if want_profile:
         traced["cuda"] = profile_call(renderer.render_device,
-                                      "CPU mode, spheres 512x512, cuda")
+                                      "CPU mode, spheres 512x512, cuda, graph frame")
 
     # ---- the file entry on the same scene and config: .svati, the native
     # parser and writers, render(), the CLI with --profile, inspect
     launches["entry"] = check_entry(spheres512, cfg, renderer, cuda_img, dev, kind, smi)
-    if launches["entry"] != launches["cpu_mode"]:
+    warm = renderer.plan.warmup_launches
+    if launches["entry"] != {k: n + warm[k] for k, n in launches["cpu_mode"].items()}:
         raise AssertionError(f"render() launched {launches['entry']}, SceneRenderer's "
-                             f"frame {launches['cpu_mode']}")
+                             f"frame {launches['cpu_mode']} and its capture's warm-up "
+                             f"{warm}")
 
     # ---- sharding: world size 1 through the sharded entry points on the
     # same frame, the sharded train step, two gloo ranks sharing the card
@@ -1464,16 +1527,11 @@ def main(argv) -> int:
     # ---- the 96k-triangle grid: interval hierarchy, large-table fetch, and
     # the front-to-back sweep (375 triangle tiles > 2 * 8)
     grid512 = make_sphere_grid_scene(512, 512)
-    grenderer = SceneRenderer(grid512, cfg, dev)
-    grid_img, grid_counts = counted_frame(
-        grenderer, "CPU mode, grid 512x512, cuda",
-        ("nearest_hit", "nearest_dist", "fetch_rows"))
-    _, times = time_frames(grenderer, 2)
-    report_frames("CPU mode, grid 512x512, cuda", grenderer, times, cpu_rays, smi)
-    f2b = SceneRenderer(grid512, RenderConfig(backend="cuda", f2b_tiles=8), dev)
-    f2b_img, launches["front_to_back"] = counted_frame(
-        f2b, "CPU mode, grid 512x512, cuda, f2b_tiles=8",
-        ("nearest_hit", "nearest_dist", "fetch_rows"))
+    _, grid_img, grid_counts, _, _ = check_graph_cell(
+        "CPU mode, grid 512x512, cuda", grid512, cfg, dev, smi, k123, n_primary=cpu_rays)
+    _, f2b_img, launches["front_to_back"], _, _ = check_graph_cell(
+        "CPU mode, grid 512x512, cuda, f2b_tiles=8", grid512,
+        RenderConfig(backend="cuda", f2b_tiles=8), dev, smi, k123, n_primary=cpu_rays)
     if launches["front_to_back"]["nearest_hit"] != 2 * grid_counts["nearest_hit"]:
         raise AssertionError("front-to-back did not double the nearest_hit launches: "
                              f"{launches['front_to_back']} against {grid_counts}")
@@ -1481,37 +1539,26 @@ def main(argv) -> int:
         raise AssertionError("the front-to-back frame differs from the plain sweep's")
     say("render", "grid 512x512: front-to-back frame equal to the plain sweep's, "
         "nearest_hit launches doubled")
-    _, times = time_frames(f2b, 2)
-    report_frames("CPU mode, grid 512x512, cuda, f2b_tiles=8", f2b, times, cpu_rays, smi)
 
     # ---- GPU mode: 512x512 output at aliasing 3, shadows through the
     # any-hit sweep, held against the same frame through the distance sweep
     gpu_rays = 512 * 512 * ALIASING ** 2
     gcfg = RenderConfig(mode="gpu", backend="cuda", aliasing=ALIASING, max_bounce=10)
-    any_cfg = RenderConfig(mode="gpu", backend="cuda", aliasing=ALIASING,
-                           max_bounce=10, any_hit_min_tris=0)
-    any_renderer = SceneRenderer(spheres512, any_cfg, dev)
-    any_img, launches["gpu_mode"] = counted_frame(
-        any_renderer, f"GPU mode, spheres 512x512 x{ALIASING}, cuda, any-hit",
-        ("nearest_hit", "fetch_rows", "any_hit"), none=("nearest_dist",))
-    dist_renderer = SceneRenderer(spheres512, gcfg, dev)
+    any_cfg = dataclasses.replace(gcfg, any_hit_min_tris=0)
+    any_renderer, any_img, launches["gpu_mode"], _, _ = check_graph_cell(
+        f"GPU mode, spheres 512x512 x{ALIASING}, cuda, any-hit", spheres512, any_cfg,
+        dev, smi, ("nearest_hit", "fetch_rows", "any_hit"), none=("nearest_dist",),
+        n_primary=gpu_rays)
     dist_img, _ = counted_frame(
-        dist_renderer, f"GPU mode, spheres 512x512 x{ALIASING}, cuda, distance sweep",
+        SceneRenderer(spheres512, gcfg, dev),
+        f"GPU mode, spheres 512x512 x{ALIASING}, cuda, distance sweep, graph frame",
         ("nearest_hit", "fetch_rows", "nearest_dist"), none=("any_hit",))
     require_same_image(any_img, dist_img,
                        "GPU mode: any-hit frame against the distance-sweep frame")
-    # two versions in one call, in turns
-    _, t_any = time_frames(any_renderer, 1)
-    _, t_dist = time_frames(dist_renderer, 2)
-    _, t_any2 = time_frames(any_renderer, 1)
-    report_frames(f"GPU mode, spheres 512x512 x{ALIASING}, cuda, any-hit",
-                  any_renderer, t_any + t_any2, gpu_rays, smi)
-    report_frames(f"GPU mode, spheres 512x512 x{ALIASING}, cuda, distance sweep",
-                  dist_renderer, t_dist, gpu_rays, smi)
     if want_profile:
         traced["GPU mode, any-hit"] = profile_call(
             any_renderer.render_device,
-            f"GPU mode, spheres 512x512 x{ALIASING}, any-hit")
+            f"GPU mode, spheres 512x512 x{ALIASING}, any-hit, graph frame")
 
     small = make_sphere_scene(64, 64, **SPHERES)
     small_img = SceneRenderer(small, any_cfg, dev).render_device()
@@ -1529,28 +1576,28 @@ def main(argv) -> int:
         "octree cull")
 
     # ---- backend "cuda_matmul": the sphere scene at 512x512 in CPU mode
-    mm = SceneRenderer(spheres512, RenderConfig(backend="cuda_matmul"), dev)
-    mm_img, launches["matmul"] = counted_frame(
-        mm, "CPU mode, spheres 512x512, cuda_matmul",
+    mm_cfg = RenderConfig(backend="cuda_matmul")
+    mm, mm_img, launches["matmul"], _, _ = check_graph_cell(
+        "CPU mode, spheres 512x512, cuda_matmul", spheres512, mm_cfg, dev, smi,
         ("nearest_hit_matmul", "nearest_dist_matmul", "fetch_rows"),
-        none=("nearest_hit", "nearest_dist", "any_hit"))
+        none=("nearest_hit", "nearest_dist", "any_hit"), n_primary=cpu_rays)
     d = assert_images_close(u8(mm_img), u8(cuda_img), tol=1,
                             context="cuda_matmul against cuda, spheres 512x512")
     say("render", f"cuda_matmul against cuda, spheres 512x512: {d}")
-    # two versions in one call, in turns: cuda_matmul, cuda, cuda_matmul
+    # two versions in one call, in turns: cuda_matmul, cuda, cuda, cuda_matmul
     _, times = time_frames(mm, 1)
     _, again = time_frames(renderer, 2)
     times += time_frames(mm, 1)[1]
-    mm_frame_ms = report_frames("CPU mode, spheres 512x512, cuda_matmul", mm, times,
-                                cpu_rays, smi)
-    cuda_again_ms = report_frames("CPU mode, spheres 512x512, cuda, again", renderer,
-                                  again, cpu_rays, smi)
-    say("render", "cuda_matmul frame / cuda frame beside it: "
+    mm_frame_ms = report_frames("CPU mode, spheres 512x512, cuda_matmul, graph", mm,
+                                times, cpu_rays, smi)
+    cuda_again_ms = report_frames("CPU mode, spheres 512x512, cuda, graph, again",
+                                  renderer, again, cpu_rays, smi)
+    say("render", "cuda_matmul frame / cuda frame beside it (graph frames): "
         f"{mm_frame_ms / cuda_again_ms:.3f}")
     if want_profile:
-        traced["cuda_matmul"] = profile_call(mm.render_device,
-                                             "CPU mode, spheres 512x512, cuda_matmul")
-        say("profile", "device kernels and copies per frame, spheres 512x512: "
+        traced["cuda_matmul"] = profile_call(
+            mm.render_device, "CPU mode, spheres 512x512, cuda_matmul, graph frame")
+        say("profile", "device kernels and copies per graph frame, spheres 512x512: "
             + ", ".join(f"{k} {n}" for k, n in traced.items())
             + f"; cuda_matmul - cuda = {traced['cuda_matmul'] - traced['cuda']}")
 

@@ -56,9 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rays traced per chunk")
     p.add_argument("--unroll", choices=["auto", "while", "static"],
                    default="auto",
-                   help="bounce-loop strategy of the differentiable path: "
-                   "static (or auto with quantize=smooth) lets remat "
-                   "checkpoint each bounce step; no effect on a forward render")
+                   help="bounce-loop strategy: static (or auto with "
+                   "quantize=smooth) renders eagerly and lets remat "
+                   "checkpoint each bounce step; otherwise the GPU replays "
+                   "a frame captured once into CUDA graphs")
     p.add_argument("--tiles", type=int, default=0,
                    help="shard rays over N processes (0 = one process); "
                    "launch the processes with torchrun")

@@ -36,13 +36,15 @@ class RenderConfig:
     variable is read). `any_hit_min_tris` is the padded triangle count from
     which backend "cuda" answers shadow rays with the any-hit sweep instead
     of the distance sweep (same image; the default keeps it off, 0 forces
-    it). `unroll` and `remat` belong to the differentiable path. The
-    port's bounce loops are eager Python loops that stop once every ray is
-    dead, and an eager loop is reverse-differentiable as it stands (dead
-    iterations would add exact zeros), so `unroll` picks no loop form here.
-    It keeps the JAX package's three values and decides only whether `remat`
-    applies: `resolve_unroll()` is True for "static", and for "auto" when
-    `quantize == "smooth"`. Where it is True, `remat` is on and autograd is
+    it). `unroll` picks the JAX package's two strategies, with its three
+    values: `resolve_unroll()` is True for "static", and for "auto" when
+    `quantize == "smooth"`. False is the compiled while-loop strategy: on
+    the card `SceneRenderer` captures its frame into CUDA graphs once and
+    replays them (`utils/frame_graph.py`). True is the unrolled,
+    differentiable strategy: frames render eagerly. The port's bounce loops
+    stop once every ray is dead in both, and an eager loop is
+    reverse-differentiable as it stands (dead iterations would add exact
+    zeros). Where `resolve_unroll()` is True, `remat` is on and autograd is
     recording, each bounce step is checkpointed: its activations are dropped
     after the forward pass and recomputed in the backward pass, so backward
     memory holds one bounce and not `depth` of them. The step's sweeps are

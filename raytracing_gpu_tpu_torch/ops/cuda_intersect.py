@@ -41,6 +41,7 @@ backend to one); kernel and plain version still agree bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -57,7 +58,8 @@ _THIRD = float(np.float32(1.0 / 3.0))  # XLA's mean divides by 3 as * f32(1/3)
 
 # Launch counts of the kernels, by wrapper name. A wrapper adds one exactly
 # where it launches its kernel (never on its plain path), so a run can show
-# that the main path went through the kernels.
+# that the main path went through the kernels. The launches inside a CUDA
+# graph are counted at each replay of the graph, not at its capture.
 LAUNCHES = {"nearest_hit": 0, "nearest_dist": 0, "fetch_rows": 0,
             "any_hit": 0, "nearest_hit_matmul": 0, "nearest_dist_matmul": 0}
 
@@ -65,6 +67,27 @@ LAUNCHES = {"nearest_hit": 0, "nearest_dist": 0, "fetch_rows": 0,
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Yields a dict that, when the block ends, holds the launches the
+    wrappers counted inside it, and takes them back out of `LAUNCHES`: for a
+    block that captures a CUDA graph, which launches nothing. Each replay of
+    the graph adds them again (`add_launches`)."""
+    before = dict(LAUNCHES)
+    recorded = {}
+    try:
+        yield recorded
+    finally:
+        recorded.update({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+        LAUNCHES.update(before)
+
+
+def add_launches(counts: dict) -> None:
+    """Count the launches of one replay of a captured graph."""
+    for k, n in counts.items():
+        LAUNCHES[k] += n
 
 
 # ---------------------------------------------------------------------------
@@ -116,8 +139,9 @@ def pack_rays(origins, dirs):
     pad = (-R) % TILE_R
     if pad:
         origins = torch.cat([origins, origins.new_full((pad, 3), 1e30)])
-        tail = dirs.new_zeros((pad, 3))
-        tail[:, 2] = 1.0
+        # made on the device, not by assigning a Python float (which a CUDA
+        # graph capture may refuse)
+        tail = torch.cat([dirs.new_zeros((pad, 2)), dirs.new_ones((pad, 1))], 1)
         dirs = torch.cat([dirs, tail])
     return origins.t().contiguous(), dirs.t().contiguous(), R
 
@@ -301,7 +325,9 @@ def build_tile_levels(tile_aabb, tile_nonempty, branching: int = 8,
     while boxes.shape[0] > top_max:
         pad = (-boxes.shape[0]) % branching
         if pad:
-            empty = boxes.new_tensor([[INF] * 3, [-INF] * 3])  # union-neutral
+            # union-neutral; made on the device (no host data: capturable)
+            empty = torch.stack([boxes.new_full((3,), INF),
+                                 boxes.new_full((3,), -INF)])
             boxes = torch.cat([boxes, empty.expand(pad, 2, 3)])
             nonempty = torch.cat([nonempty, nonempty.new_zeros((pad,))])
         g = boxes.reshape(-1, branching, 2, 3)

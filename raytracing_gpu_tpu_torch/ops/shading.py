@@ -106,8 +106,12 @@ def shade(scene, hit: Hit, cops: ColorOps, mt_eps=1e-7, self_hit_eps=0.01,
         if not ix:
             continue
         Kk = len(ix)
-        lv = lights.v[ix]  # (Kk,3)
-        lrgb = cops.init(lights.rgb[ix][:, None, :].expand(Kk, R, 3))
+        # stacked rows, not `lights.v[ix]`: indexing with a Python list copies
+        # the list to the device from pageable memory, which a CUDA graph
+        # capture refuses
+        lv = torch.stack([lights.v[i] for i in ix])  # (Kk,3)
+        lrgb = cops.init(torch.stack([lights.rgb[i] for i in ix])[:, None, :]
+                         .expand(Kk, R, 3))
         kd_b = cops.init(kd[None].expand(Kk, R, 3))
         L = (-lv[:, None, :]).expand(Kk, R, 3)
         if kind == DIRECTIONAL:

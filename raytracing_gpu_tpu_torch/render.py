@@ -16,7 +16,12 @@ iterations), then the uint8 box downscale of gpu/raytracer.cu:49-85.
 
 Both bounce loops are Python loops with one `.any()` sync per bounce that
 stop once no ray is alive; dead rays are parked (origin 3e29, direction 0) so
-tile culling drops them.
+tile culling drops them. A `FrameLayout` (`cpu_frame`, `gpu_frame`) says how
+a frame's rays are made and its image assembled; the eager chunk loop
+(`_trace_image`) and the captured frame (`frame_plan`, a
+`utils.frame_graph.FramePlan`: CUDA graphs of one chunk's rays, one bounce
+step and the fold, replayed chunk by chunk) both follow it, and
+`SceneRenderer` takes the captured frame on the card.
 
 The loops are differentiable as they stand (`render_image`, and
 `parallel/train.py` through `trace_chunks`): a sweep only selects, and what
@@ -52,6 +57,11 @@ from raytracing_gpu_tpu_torch.ops.intersect import (
 from raytracing_gpu_tpu_torch.ops.shading import PARKED, material_rows, shade
 from raytracing_gpu_tpu_torch.partition.apply import with_accel
 from raytracing_gpu_tpu_torch.utils import image as image_io
+from raytracing_gpu_tpu_torch.utils.frame_graph import (
+    FrameLayout,
+    FramePlan,
+    uses_frame_graph,
+)
 
 
 def resolve_device(device) -> torch.device:
@@ -277,16 +287,14 @@ def assemble_cpu_image(colors, cfg: RenderConfig, width: int, height: int):
         _fold_subsamples(colors, cfg)).reshape(height, width, 3)
 
 
-def _trace_image(scene, cfg, depth, n_rays, coord_fn, pack=None,
-                 gpu_semantics=False, fold4=False, ray_id_map=None):
-    """Colors of n_rays rays, chunk by chunk, generating each chunk's rays
-    from their ids with `coord_fn(ray_ids)` and tracing them through the CPU
-    pipeline's recursion or, with gpu_semantics, the GPU pipeline's bounce
-    loop. The tail chunk's ids are clamped to the last ray (its duplicates
-    are sliced away). fold4 folds each chunk's 2x2 subsamples into pixels
-    and returns (n_rays/4, 3); it needs a chunk size divisible by 4, so
-    that a pixel's subsamples never straddle chunks."""
-    chunk = min(cfg.ray_chunk, n_rays)
+def _trace_image(frame: FrameLayout, cfg, depth, pack=None):
+    """Colors of a frame's rays, chunk by chunk, generating each chunk's
+    rays from their ids and tracing them through the CPU pipeline's
+    recursion (`depth` levels) or the GPU pipeline's bounce loop. The tail
+    chunk's ids are clamped to the last ray (its duplicates are sliced
+    away). With `frame.fold4` each chunk's 2x2 subsamples are folded into
+    pixels: (n_rays/4, 3)."""
+    scene, n_rays, chunk = frame.scene, frame.n_rays, frame.chunk
     dev = scene.device
     if pack is None:
         pack = _kernel_pack(scene, cfg)
@@ -295,42 +303,64 @@ def _trace_image(scene, cfg, depth, n_rays, coord_fn, pack=None,
     out = []
     for c0 in range(0, n_rays, chunk):
         r = torch.clamp(torch.arange(c0, c0 + chunk, device=dev), max=n_rays - 1)
-        if ray_id_map is not None:
-            r = ray_id_map(r)
-        origins, dirs = camera_ops.make_rays(u, v, C, pos, coord_fn(r))
-        if gpu_semantics:
+        origins, dirs = camera_ops.make_rays(u, v, C, pos, frame.coords(r))
+        if frame.gpu_semantics:
             colors = trace_rays_gpu(scene, origins, dirs, cfg, pack)
         else:
             colors = trace_rays(scene, origins, dirs, cfg, depth, pack)
-        out.append(_fold_subsamples(colors, cfg) if fold4 else colors)
-    colors = torch.cat(out)
-    return colors[:n_rays // 4] if fold4 else colors[:n_rays]
+        out.append(_fold_subsamples(colors, cfg) if frame.fold4 else colors)
+    return torch.cat(out)[:frame.n_out]
 
 
-def _render_cpu_mode(scene: Scene, cfg: RenderConfig, depth: int, pack=None):
-    """CPU-reference pipeline: (H,W,3) float32 image in [0,255] on the
-    scene's device."""
+def cpu_frame(scene: Scene, cfg: RenderConfig) -> FrameLayout:
+    """The CPU-reference pipeline's frame: (pixel, 2x2 subsample) rays,
+    block-swizzled on the kernel backends when a pixel block divides the
+    image, folded into pixels per chunk when the chunk size allows."""
     width, height = scene.camera.width, scene.camera.height
     n_rays = width * height * 4
-    fold4 = min(cfg.ray_chunk, n_rays) % 4 == 0
+    chunk = min(cfg.ray_chunk, n_rays)
+    fold4 = chunk % 4 == 0
     blk = _pick_block(width, height) if fold4 else None
     swiz = (blk is not None and cfg.backend in KERNEL_BACKENDS
             and cfg.block_rays in ("on", "auto"))
     ray_id_map = None
     if swiz:
         bx, by = blk
-        ray_id_map = lambda r: _swiz_ray_ids(r, width, bx, by)  # noqa: E731
+        ray_id_map = functools.partial(_swiz_ray_ids, width=width, bx=bx, by=by)
     coord_fn = functools.partial(camera_ops.cpu_subpixel_coords_traced,
                                  width, height)
-    colors = _trace_image(scene, cfg, depth, n_rays, coord_fn, pack,
-                          fold4=fold4, ray_id_map=ray_id_map)
-    if not fold4:
-        return assemble_cpu_image(colors, cfg, width, height)
-    out = ColorOps(cfg.quantize).finalize(colors)
-    if swiz:
-        return (out.reshape(height // by, width // bx, by, bx, 3)
-                .permute(0, 2, 1, 3, 4).reshape(height, width, 3))
-    return out.reshape(height, width, 3)
+
+    def finish(colors):
+        if not fold4:
+            return assemble_cpu_image(colors, cfg, width, height)
+        out = ColorOps(cfg.quantize).finalize(colors)
+        if swiz:
+            return (out.reshape(height // by, width // bx, by, bx, 3)
+                    .permute(0, 2, 1, 3, 4).reshape(height, width, 3))
+        return out.reshape(height, width, 3)
+
+    return FrameLayout(scene, n_rays, chunk, coord_fn, ray_id_map, False, fold4,
+                       finish)
+
+
+def gpu_frame(scene: Scene, cfg: RenderConfig) -> FrameLayout:
+    """The GPU-reference pipeline's frame: one ray per pixel of the hi-res
+    image in row-major order, unswizzled and unfolded, as in the JAX
+    package, then the box downscale."""
+    scene_hi = hi_res_scene(scene, cfg)
+    hw, hh = scene_hi.camera.width, scene_hi.camera.height
+    coord_fn = functools.partial(camera_ops.gpu_pixel_coords_traced, hw, hh)
+    finish = functools.partial(assemble_gpu_image, cfg=cfg,
+                               width=scene.camera.width,
+                               height=scene.camera.height)
+    n_rays = hw * hh
+    return FrameLayout(scene_hi, n_rays, min(cfg.ray_chunk, n_rays), coord_fn, None,
+                       True, False, finish)
+
+
+def frame_layout(scene: Scene, cfg: RenderConfig) -> FrameLayout:
+    """The frame `cfg.mode` names."""
+    return gpu_frame(scene, cfg) if cfg.mode == "gpu" else cpu_frame(scene, cfg)
 
 
 def assemble_gpu_image(colors, cfg: RenderConfig, width: int, height: int):
@@ -347,28 +377,47 @@ def assemble_gpu_image(colors, cfg: RenderConfig, width: int, height: int):
     return torch.flip(lo, (0, 1))
 
 
-def _render_gpu_mode(scene: Scene, cfg: RenderConfig, pack=None):
-    """GPU-reference pipeline: (H,W,3) float32 image in [0,255] on the
-    scene's device. Rays go out in row-major order, unswizzled and unfolded,
-    as in the JAX package."""
-    width, height = scene.camera.width, scene.camera.height
-    scene_hi = hi_res_scene(scene, cfg)
-    hw, hh = scene_hi.camera.width, scene_hi.camera.height
-    coord_fn = functools.partial(camera_ops.gpu_pixel_coords_traced, hw, hh)
-    colors = _trace_image(scene_hi, cfg, 0, hw * hh, coord_fn, pack,
-                          gpu_semantics=True)
-    return assemble_gpu_image(colors, cfg, width, height)
+def _render_frame(scene: Scene, cfg: RenderConfig, depth: int | None, pack=None):
+    """The frame `cfg.mode` names, eager: (H,W,3) float32 image in [0,255]
+    on the scene's device (`depth` is the CPU pipeline's recursion depth;
+    GPU mode caps its bounces by `cfg.max_bounce`)."""
+    frame = frame_layout(scene, cfg)
+    return frame.finish(_trace_image(frame, cfg, depth, pack))
+
+
+def frame_plan(scene: Scene, cfg: RenderConfig, depth: int | None,
+               pack=None) -> FramePlan:
+    """The frame `cfg.mode` names as a `FramePlan` over `_bounce_step`, on
+    the scene's device: captured into CUDA graphs on the card, its pieces
+    called as they stand on the CPU."""
+    frame = frame_layout(scene, cfg)
+    n_bounces = cfg.max_bounce + 1 if frame.gpu_semantics else depth
+    step = functools.partial(_bounce_step, frame.scene, cfg, ColorOps(cfg.quantize),
+                             pack, frame.gpu_semantics, None, None)
+    return FramePlan(frame, cfg, n_bounces, step,
+                     functools.partial(_fold_subsamples, cfg=cfg))
 
 
 class SceneRenderer:
     """Renderer for repeated frames of one scene on one device.
 
     Moves the scene to `device` and, on the kernel backends, builds the
-    kernel pack (clustering, packing, winner table) once; `render()` then
-    only traces, through the pipeline `cfg.mode` names (`depth` is None in
-    GPU mode, which caps bounces by `cfg.max_bounce`). `device="cuda"`
-    raises when CUDA is not available: nothing falls back to the CPU unless
-    `device="cpu"` is asked for.
+    kernel pack (clustering, packing, winner table) once. On a CUDA device
+    with `cfg.resolve_unroll()` False (the JAX package's compiled while-loop
+    strategy: every config but `unroll="static"` and `quantize="smooth"`
+    under "auto") it also captures the frame into CUDA graphs once
+    (`self.plan`, a `utils.frame_graph.FramePlan`), as the JAX
+    `SceneRenderer` compiles its frame once, and `render()` replays them. A
+    capture that fails raises, naming the piece: nothing renders eagerly
+    unasked. Elsewhere (`device="cpu"`, the unrolled strategy) `self.plan`
+    is None and `render()` traces eagerly through the pipeline `cfg.mode`
+    names. `depth` is None in GPU mode, which caps bounces by
+    `cfg.max_bounce`. `device="cuda"` raises when CUDA is not available:
+    nothing falls back to the CPU unless `device="cpu"` is asked for.
+
+    The graphs read `self.scene`'s and `self.pack`'s tensors where they were
+    at capture: reassigning them afterwards is not seen (the JAX renderer's
+    compiled frame closes over its scene the same way).
     """
 
     def __init__(self, scene: Scene, cfg: RenderConfig = RenderConfig(),
@@ -383,13 +432,15 @@ class SceneRenderer:
         self.depth = frame_depth(scene, cfg) if cfg.mode == "cpu" else None
         with torch.no_grad():
             self.pack = _kernel_pack(self.scene, cfg)
+        self.plan = (frame_plan(self.scene, cfg, self.depth, self.pack)
+                     if uses_frame_graph(cfg, device) else None)
 
     @torch.no_grad()
     def render_device(self) -> torch.Tensor:
         """One frame, left on the device: (H,W,3) float32 in [0,255]."""
-        if self.cfg.mode == "gpu":
-            return _render_gpu_mode(self.scene, self.cfg, self.pack)
-        return _render_cpu_mode(self.scene, self.cfg, self.depth, self.pack)
+        if self.plan is not None:
+            return self.plan.render()
+        return _render_frame(self.scene, self.cfg, self.depth, self.pack)
 
     def render(self) -> np.ndarray:
         """One frame as host numpy (H,W,3) float32 in [0,255]."""
@@ -420,9 +471,7 @@ def render_image(scene: Scene, cfg: RenderConfig | None = None,
     scene = scene.to(resolve_device(device))
     if depth is None:
         depth = cfg.diff_max_depth if cfg.quantize == "smooth" else cfg.cpu_max_depth
-    if cfg.mode == "cpu":
-        return _render_cpu_mode(scene, cfg, depth)
-    return _render_gpu_mode(scene, cfg)
+    return _render_frame(scene, cfg, depth)
 
 
 def render(input_path: str, output_path: str, cfg: RenderConfig = RenderConfig(),
