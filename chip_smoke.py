@@ -12,7 +12,8 @@ render cells below (spheres CPU mode, grid, grid with `f2b_tiles=8`, GPU
 mode with any-hit, `cuda_matmul`) holds its graph frame against the eager
 frame of the same config (`unroll="static"`, which stays eager): bit-equal
 images, equal launches per kernel, two replays bit-equal, both timed in
-turns, with the capture's cost and the replays and syncs of a frame:
+turns, with the capture's cost and the replays and syncs of a frame, and a
+block the allocator cached before the capture still reserved after it:
 
 - CPU mode, backend "cuda": the 4,962-triangle sphere scene and the
   96,000-triangle sphere grid at 512x512 (K1, K2, K3), the kernel render
@@ -28,15 +29,25 @@ turns, with the capture's cost and the replays and syncs of a frame:
 - backend "cuda_matmul": the sphere scene at 512x512 in CPU mode (K5, K6,
   K3), held against the "cuda" frame by the edge-aware comparator;
 - training (`parallel.make_train_step`): K3's gradient (`FetchRows`) against
-  autograd of the plain `table[idx]`; the gradient of `mean(render_image)` on
+  autograd of the plain `table[idx]`, and K1, K2, K3 and its gradient on a
+  chunk of rays that are all parked (what a captured step's dead bounce
+  steps run); the gradient of `mean(render_image)` on
   the card against the same backend on CPU tensors (the kernels' plain
-  versions) for all 13 parameter groups at 32x32 and 2 bounces, twice on the
-  card; 20 Adam
-  steps on the sphere scene at 256x256 (262,144 rays in 4 chunks, depth 6,
-  `remat=True`; K1, K2, K3 and K3's gradient) recovering perturbed `kd` and
-  `lights_rgb` from a target rendered at the true parameters, the same first
-  3 steps with `remat=False` beside them, one step with the vertices free too, and a
-  save / resume round trip of the train state;
+  versions) for all 13 parameter groups at 16x16 and 2 bounces, twice on the
+  card; `ops.camera.tanf` on the card bit-equal to the host's libm `tanf`;
+  capturable Adam in a captured step against optax's update arithmetic and
+  a captured `loss_blur` step against the eager one (32x32); 20
+  Adam steps on the sphere scene at 256x256 (262,144 rays in 4 chunks, depth
+  6, `remat=True`; K1, K2, K3 and K3's gradient) recovering perturbed `kd`
+  and `lights_rgb` from a target rendered at the true parameters, through
+  the captured step (`utils/step_graph.py`: the first step eager, then one
+  CUDA graph replayed per step), its first 3 steps in turns with the eager
+  step (`plan=False`): step-1 loss bit-equal, losses, parameters and Adam
+  moments after 3 steps within rtol 1e-3 / atol 1e-4 of a group's largest
+  entry, K1 launched once per chunk and bounce step (the eager loop stops a
+  chunk early); 3 captured steps with `remat=False`, 2 with the vertices
+  and the field of view free too, and a save / resume round trip of the
+  train state (at 32x32 a restored state's next step captures again);
 - the file entry (`[entry]`): the CPU-mode sphere scene written as `.svati`
   text, parsed by the native parser (built with native="force") and by the
   Python parser, both equal to the scene leaf for leaf; `render(path,
@@ -85,13 +96,18 @@ operations over 67 TFLOP/s and its bytes (inputs read once, outputs written
 once) over 3.35 TB/s, the published peaks of an H100 SXM at 700 W; the work
 is counted for this run's data (pair tiles kept by the culling, the
 64-triangle units the any-hit sweep scanned before its early exit).
-`--profile` also traces one warm (graph) frame of each path with
+`--profile` also traces one warm (graph) frame of each path and one
+captured and one eager training step with
 torch.profiler and prints kernel launches (the three paths' side by side at
 the end) and the device's busy share, and K3's wrapper's host time by its parts at 4,096 and
 65,536 rows. Imports torch, numpy and the port only.
 """
 
 from __future__ import annotations
+
+import time
+
+T_IMPORT = time.perf_counter()  # before the imports: their time is reported
 
 import contextlib
 import dataclasses
@@ -103,7 +119,6 @@ import socket
 import subprocess
 import sys
 import tempfile
-import time
 import types
 
 import numpy as np
@@ -127,7 +142,7 @@ from raytracing_gpu_tpu_torch.native import svati as native_lib
 from raytracing_gpu_tpu_torch.ops import camera as camera_ops
 from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
 from raytracing_gpu_tpu_torch.ops.intersect import collide
-from raytracing_gpu_tpu_torch.ops.shading import shadow_rays
+from raytracing_gpu_tpu_torch.ops.shading import PARKED, shadow_rays
 from raytracing_gpu_tpu_torch.parallel import (
     extract_params,
     insert_params,
@@ -705,9 +720,12 @@ def check_graph_cell(what, scene, cfg, dev, smi, need, none=(), n_primary=0):
     the same launches per kernel, two replays bit-equal. Both are timed in
     turns (graph, eager, eager, graph; host clock around synchronised
     frames); the capture's cost (ms, graphs, memory the card reserved) and
-    the replays, syncs and bounce steps of a graph frame are printed.
+    the replays, syncs and bounce steps of a graph frame are printed. A block
+    the allocator cached before the capture must still be reserved after it.
     Returns (graph renderer, its frame, its launches, graph ms, eager ms)."""
+    addr = cached_block(dev)
     graph = SceneRenderer(scene, cfg, dev)
+    require_still_reserved(addr, what)
     plan = graph.plan
     eager = SceneRenderer(scene, dataclasses.replace(cfg, unroll="static"), dev)
     if plan is None or plan.graphs != 3 or eager.plan is not None:
@@ -746,7 +764,8 @@ def check_graph_cell(what, scene, cfg, dev, smi, need, none=(), n_primary=0):
         f"{ms_e / ms_g:.2f}x{rate}; {plan.graphs} graphs captured in "
         f"{plan.capture_ms:.1f} ms (warm-up included; launches of the warm-up "
         f"{warm}), the card reserving "
-        f"{plan.held_bytes / 2**20:.1f} MiB for them and their buffers; per frame "
+        f"{plan.held_bytes / 2**20:.1f} MiB for them and their buffers, a block cached "
+        f"before still reserved; per frame "
         f"{f.replays} replays and {f.syncs} syncs, {plan.n_chunks} chunks of "
         f"{plan.frame.chunk} rays taking {min(f.steps)}-{max(f.steps)} steps ({sum(f.steps)} "
         f"in all); {smi}")
@@ -905,25 +924,28 @@ def render_gradients(scene, cfg, device):
 
 def check_gradient_against_plain(dev):
     """The gradient on the card (kernels) against the same backend on CPU
-    tensors (plain versions), 32x32 sphere scene, all 13 groups for backend
+    tensors (plain versions), 16x16 sphere scene, all 13 groups for backend
     "cuda" and three for "cuda_matmul"; on the card twice. Geometry, normals,
     materials and the camera must get a gradient that is not all zero: a
     fetch without `grad_fn` or a camera basis computed off the graph would
     leave exact zeros there. The plain sweeps on the CPU compute all pairs,
     seconds per bounce: the depth is cut to 2 bounces (every group's
     gradient is there from the second bounce on) and to 1 for the three
-    groups of "cuda_matmul"."""
-    scene = make_sphere_scene(32, 32, **SPHERES)
+    groups of "cuda_matmul". The image is cut to 16x16 for the same reason:
+    1,024 rays still reach every group."""
+    scene = make_sphere_scene(16, 16, **SPHERES)
     for backend, depth, groups, nonzero in (
             ("cuda", 2, PARAM_KEYS, ("vertices", "normals", "kd", "cam_fov")),
             ("cuda_matmul", 1, ("vertices", "kd", "lights_rgb"),
              ("vertices", "kd", "lights_rgb"))):
         cfg = RenderConfig(quantize="smooth", backend=backend, diff_max_depth=depth)
         ck.reset_launch_counts()
-        got = render_gradients(scene, cfg, dev)
-        counts = dict(ck.LAUNCHES)
-        again = render_gradients(scene, cfg, dev)
+        (got, again), card_ms = wall_ms(lambda: [render_gradients(scene, cfg, dev)
+                                                 for _ in range(2)])
+        counts = {k: n // 2 for k, n in ck.LAUNCHES.items()}
+        t0 = time.perf_counter()
         ref = render_gradients(scene, cfg, "cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
         worst, rerun = 0.0, 0.0
         for k in groups:
             scale = float(ref[k].abs().max())
@@ -938,12 +960,13 @@ def check_gradient_against_plain(dev):
                     f"{float((got[k] - ref[k]).abs().max()):.3e} of {scale:.3e}")
             worst = max(worst, float((got[k] - ref[k]).abs().max()) / scale)
             rerun = max(rerun, float((got[k] - again[k]).abs().max()) / scale)
-        say("train", f"gradient of mean(render_image), spheres 32x32, depth {depth}, {backend}: "
+        say("train", f"gradient of mean(render_image), spheres 16x16, depth {depth}, {backend}: "
             f"{len(groups)} groups on the card within rtol {GRAD_RTOL} / atol "
             f"{GRAD_ATOL_SHARE} of the largest entry of the plain path's; largest "
             f"|d| {worst:.3e} of a group's largest entry; {', '.join(nonzero)} not "
             f"all zero; second run on the card differs by at most {rerun:.3e}; "
-            f"launches of one forward+backward {counts}")
+            f"launches of one forward+backward {counts}; host ms: two on the card "
+            f"{card_ms:.0f}, the plain path {cpu_ms:.0f}")
 
 
 TRAIN = dict(size=256, ray_chunk=65536, depth=6, steps=20, lr=1e-2)
@@ -964,37 +987,90 @@ def perturbed_params(scene, seed=20261016):
     return params
 
 
+def timed_step(step_fn, state, scene, coords, target):
+    """One synchronised step: (loss, host ms, launches, peak bytes
+    allocated during it)."""
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, loss = step_fn(state, scene, coords, target)
+    torch.cuda.synchronize()
+    return (float(loss), (time.perf_counter() - t0) * 1e3, dict(ck.LAUNCHES),
+            torch.cuda.max_memory_allocated())
+
+
 def timed_steps(step_fn, state, scene, coords, target, n):
     """n synchronised steps: (state, losses, ms per step, launches per step,
     peak bytes allocated)."""
-    losses, times, counts = [], [], []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(n):
-        ck.reset_launch_counts()
-        t0 = time.perf_counter()
-        state, loss = step_fn(state, scene, coords, target)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        counts.append(dict(ck.LAUNCHES))
-        losses.append(float(loss))
-    return state, losses, times, counts, torch.cuda.max_memory_allocated()
+    runs = [timed_step(step_fn, state, scene, coords, target) for _ in range(n)]
+    return (state, [r[0] for r in runs], [r[1] for r in runs], [r[2] for r in runs],
+            max(r[3] for r in runs))
+
+
+def cached_block(dev, nbytes=64 << 20):
+    """The address of a block the allocator caches (allocated and freed)."""
+    block = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    addr = block.data_ptr()
+    del block
+    return addr
+
+
+def require_still_reserved(addr, what):
+    """A capture must not release the allocator's cached blocks."""
+    if not any(seg["address"] <= addr < seg["address"] + seg["total_size"]
+               for seg in torch.cuda.memory_snapshot()):
+        raise AssertionError(f"{what}: a block cached before the capture was released")
+
+
+def require_close_states(a, b, what):
+    """Parameters and optimizer moments of two states within rtol 1e-3 and
+    atol 1e-4 of each group's largest entry (`index_add_` sums in another
+    order on every run); returns the largest |d| over that entry."""
+    worst = 0.0
+    for k in PARAM_KEYS:
+        x, y = a.params[k].detach(), b.params[k].detach()
+        scale = max(float(y.abs().max()), 1e-30)
+        if not torch.allclose(x, y, rtol=GRAD_RTOL, atol=GRAD_ATOL_SHARE * scale):
+            raise AssertionError(f"{what}: {k} off by {float((x - y).abs().max()):.3e} "
+                                 f"of {scale:.3e}")
+        worst = max(worst, float((x - y).abs().max()) / scale)
+    sa, sb = a.opt_state.state_dict()["state"], b.opt_state.state_dict()["state"]
+    for i, slot in sa.items():
+        for name, x in slot.items():
+            y = sb[i][name]
+            scale = max(float(y.abs().max()), 1e-30)
+            if not torch.allclose(x, y, rtol=GRAD_RTOL, atol=GRAD_ATOL_SHARE * scale):
+                raise AssertionError(f"{what}: Adam's {name} of group {i} off by "
+                                     f"{float((x - y).abs().max()):.3e} of {scale:.3e}")
+            worst = max(worst, float((x - y).abs().max()) / scale)
+    return worst
+
+
+def adam(*names):
+    """Adam at the cell's rate over the named groups, capturable (a
+    captured step needs it)."""
+    return lambda p: torch.optim.Adam([p[k] for k in names], lr=TRAIN["lr"],
+                                      capturable=True)
 
 
 def check_training(dev, smi, want_profile):
-    """The training path at full width; returns the launches of one step
-    with `remat=True`."""
-    size = TRAIN["size"]
+    """The training path at full width through the captured step (CUDA
+    graph replays, `utils.step_graph.StepPlan`), held against the eager step
+    for its first 3 steps; returns the launches of one step with
+    `remat=True`."""
+    size, depth = TRAIN["size"], TRAIN["depth"]
     scene = make_sphere_scene(size, size, **SPHERES)
     scene_d = scene.to(dev)
     cfg = RenderConfig(mode="cpu", quantize="smooth", backend="cuda",
-                       ray_chunk=TRAIN["ray_chunk"], diff_max_depth=TRAIN["depth"],
+                       ray_chunk=TRAIN["ray_chunk"], diff_max_depth=depth,
                        remat=True)
     n_rays = size * size * 4
+    n_chunks = n_rays // TRAIN["ray_chunk"]
     coords = camera_ops.cpu_subpixel_coords_traced(
         size, size, torch.arange(n_rays, device=dev))
     with torch.no_grad():
-        target = predict_pixels(scene, cfg, TRAIN["depth"], coords, device=dev)
+        target = predict_pixels(scene, cfg, depth, coords, device=dev)
     if tuple(target.shape) != (size * size, 3) or not bool(torch.isfinite(target).all()):
         raise AssertionError("training target has the wrong shape or is not finite")
     start = perturbed_params(scene)
@@ -1004,16 +1080,43 @@ def check_training(dev, smi, want_profile):
         return float((state.params["kd"][:scene.n_objects].detach().cpu()
                       - true_kd).abs().mean())
 
-    def free(*names):
-        return lambda p: torch.optim.Adam([p[k] for k in names], lr=TRAIN["lr"])
-
-    init_state, step_fn = make_train_step(None, cfg, scene, optimizer=free("kd", "lights_rgb"),
+    init_state, step_fn = make_train_step(None, cfg, scene, optimizer=adam("kd", "lights_rgb"),
                                           device=dev)
-    state = init_state(start)
+    init_eager, step_eager = make_train_step(None, cfg, scene,
+                                             optimizer=adam("kd", "lights_rgb"),
+                                             device=dev, plan=False)
+    plan = step_fn.plan
+    if plan is None or step_eager.plan is not None:
+        raise AssertionError("training: expected a captured step beside an eager one")
+    state, twin = init_state(start), init_eager(start)
     kd0 = kd_error(state)
-    state, losses, times, counts, peak = timed_steps(
-        step_fn, state, scene_d, coords, target, TRAIN["steps"])
+    addr = cached_block(dev)
+    # the first 3 steps in turns with the eager twin: graph, eager, eager,
+    # graph, graph, eager (the graph's first step is its capture)
+    runs = {"graph": [], "eager": []}
+    for order in (("graph", "eager"), ("eager", "graph"), ("graph", "eager")):
+        for which in order:
+            fn, st = (step_fn, state) if which == "graph" else (step_eager, twin)
+            runs[which].append(timed_step(fn, st, scene_d, coords, target))
+            if which == "graph" and len(runs["graph"]) == 1:
+                require_still_reserved(addr, "training step capture")
+    losses = [r[0] for r in runs["graph"]]
+    eager_losses = [r[0] for r in runs["eager"]]
+    if losses[0] != eager_losses[0]:
+        raise AssertionError(f"training: step-1 loss {losses[0]!r} of the captured step, "
+                             f"{eager_losses[0]!r} of the eager one")
+    if not np.allclose(losses, eager_losses, rtol=GRAD_RTOL):
+        raise AssertionError(f"training: losses {losses} against eager {eager_losses}")
+    worst = require_close_states(state, twin, "captured against eager after 3 steps")
+    runs["graph"] += [timed_step(step_fn, state, scene_d, coords, target)
+                      for _ in range(TRAIN["steps"] - 3)]
+    losses = [r[0] for r in runs["graph"]]
     kd1 = kd_error(state)
+    if plan.captures != 1 or plan.replays != TRAIN["steps"] - 1 or state.step != TRAIN["steps"]:
+        raise AssertionError(f"training: {plan.captures} captures and {plan.replays} "
+                             f"replays for {state.step} steps")
+    peak_capture, peak = runs["graph"][0][3], max(r[3] for r in runs["graph"][1:])
+    peak_e = max(r[3] for r in runs["eager"])
     if not all(np.isfinite(losses)):
         raise AssertionError(f"training: a loss is not finite: {losses}")
     if not losses[-1] < 0.5 * losses[0]:
@@ -1021,55 +1124,85 @@ def check_training(dev, smi, want_profile):
                              "not under half its first value")
     if not kd1 < kd0:
         raise AssertionError(f"training: kd error {kd0:.4f} -> {kd1:.4f} did not fall")
-    per_step = counts[-1]
-    for name in ("nearest_hit", "nearest_dist", "fetch_rows"):
-        if per_step[name] <= 0:
-            raise AssertionError(f"training: a step never launched {name}")
-    if any(c != per_step for c in counts[1:]):
-        say("train", f"launches per step varied: {counts}")
-    ms = float(np.median(times[1:]))
+    counts = [r[2] for r in runs["graph"]]
+    per_step, eager_step = counts[-1], runs["eager"][-1][2]
+    sweeps = n_chunks * depth
+    want = {"nearest_hit": sweeps, "nearest_dist": sweeps, "fetch_rows": 2 * sweeps}
+    if any(c != per_step for c in counts[1:]) or any(
+            per_step[k] != n for k, n in want.items()):
+        raise AssertionError(f"training: launches per replayed step {counts}, expected "
+                             f"{want} ({n_chunks} chunks x {depth} bounce steps; the "
+                             "fetch again in remat's recomputation)")
+    if eager_step["nearest_hit"] >= per_step["nearest_hit"]:
+        raise AssertionError(f"training: the eager step launched {eager_step}, the "
+                             f"captured one {per_step}: no early exit to cut")
+    tg = [r[1] for r in runs["graph"]]
+    te = [r[1] for r in runs["eager"]]
+    ms, ms_e = float(np.median(tg[1:])), float(np.median(te[1:]))
+    warm = {k: n for k, n in plan.warmup_launches.items() if n}
     say("train", f"spheres {size}x{size} ({scene.n_triangles} tris, {n_rays} rays in "
-        f"{n_rays // TRAIN['ray_chunk']} chunks, depth {TRAIN['depth']}), cuda, "
-        f"remat=True, Adam lr {TRAIN['lr']} on kd + lights_rgb: loss "
+        f"{n_chunks} chunks, depth {depth}), cuda, remat=True, capturable Adam lr "
+        f"{TRAIN['lr']} on kd + lights_rgb, captured step (CUDA graph): loss "
         f"{losses[0]:.4e} -> {losses[-1]:.4e} in {len(losses)} steps "
-        f"(x{losses[-1] / losses[0]:.4f}), kd error {kd0:.4f} -> {kd1:.4f}; steps "
-        f"{[round(t, 1) for t in times]} ms, median of the warm ones {ms:.1f} ms/step; "
-        f"launches per step {per_step}; peak memory {peak / 2**20:.1f} MiB; {smi}")
+        f"(x{losses[-1] / losses[0]:.4f}), kd error {kd0:.4f} -> {kd1:.4f}; "
+        f"{plan.captures} capture ({plan.capture_ms:.1f} ms, of which the warm-up step "
+        f"{plan.warmup_ms:.1f} ms; the "
+        f"card reserving {plan.held_bytes / 2**20:.1f} MiB for the graph and buffers; "
+        f"a block cached before it still reserved), {plan.replays} replays, 1 replay "
+        f"per step; steps {[round(t, 1) for t in tg]} ms; launches per step "
+        f"{per_step} (warm-up step {warm}); peak memory allocated: warm-up step and "
+        f"capture {peak_capture / 2**20:.1f} MiB, a replayed step {peak / 2**20:.1f} MiB, "
+        f"an eager step {peak_e / 2**20:.1f} MiB; {smi}")
+    say("train", f"captured against eager, first 3 steps in turns: graph "
+        f"{[round(t, 1) for t in tg[:3]]} ms, eager {[round(t, 1) for t in te]} ms; "
+        f"ms/step (steps 2-3, replays of step 2-20) graph {ms:.1f}, eager {ms_e:.1f}, "
+        f"eager/graph {ms_e / ms:.2f}x; step-1 loss bit-equal "
+        f"({losses[0]!r}), losses 2-3 {losses[1:3]} against {eager_losses[1:]}; "
+        f"parameters and Adam moments after 3 steps within {worst:.3e} of a group's "
+        f"largest entry; eager launches per step {eager_step} (its loop stops a chunk "
+        f"once its rays are dead; the captured step runs every bounce step); {smi}")
     say("train", "losses " + " ".join(f"{x:.4e}" for x in losses))
 
-    # the same steps without checkpointing: what remat saves and costs
+    # the same steps without checkpointing, captured too: what remat saves and
+    # costs
     plain_cfg = dataclasses.replace(cfg, remat=False)
     init_plain, step_plain = make_train_step(
-        None, plain_cfg, scene, optimizer=free("kd", "lights_rgb"), device=dev)
+        None, plain_cfg, scene, optimizer=adam("kd", "lights_rgb"), device=dev)
     _, losses_p, times_p, counts_p, peak_p = timed_steps(
         step_plain, init_plain(start), scene_d, coords, target, 3)
-    times_r, counts_r, peak_r = times[:3], counts[:3], peak
+    if step_plain.plan is None or step_plain.plan.replays != 2:
+        raise AssertionError("training, remat=False: the step was not captured")
     for name in ("nearest_hit", "nearest_dist"):
-        if counts_p[-1][name] != counts_r[-1][name]:
-            raise AssertionError(f"remat launched {name} {counts_r[-1][name]} times a "
+        if counts_p[-1][name] != per_step[name]:
+            raise AssertionError(f"remat launched {name} {per_step[name]} times a "
                                  f"step, {counts_p[-1][name]} without it: a sweep ran "
                                  "again in the backward pass")
-    if not np.allclose(losses_p, losses[:3], rtol=1e-3):
+    if not np.allclose(losses_p, losses[:3], rtol=GRAD_RTOL):
         raise AssertionError(f"remat=False losses {losses_p} differ from {losses[:3]}")
-    say("train", f"remat=False, 3 steps: {[round(t, 1) for t in times_p]} ms, peak "
-        f"{peak_p / 2**20:.1f} MiB, launches per step {counts_p[-1]}; the first 3 "
-        f"steps with remat=True: {[round(t, 1) for t in times_r]} ms, peak {peak_r / 2**20:.1f} "
-        f"MiB, launches per step {counts_r[-1]}; last-step ratio remat/plain "
-        f"{times_r[-1] / times_p[-1]:.3f}, memory {peak_r / peak_p:.3f}")
+    say("train", f"remat=False, captured, 3 steps: {[round(t, 1) for t in times_p]} ms "
+        f"(capture {step_plain.plan.capture_ms:.1f} ms, "
+        f"{step_plain.plan.held_bytes / 2**20:.1f} MiB), peak {peak_p / 2**20:.1f} MiB, "
+        f"launches per step {counts_p[-1]}; remat=True: {[round(t, 1) for t in tg[:3]]} ms, "
+        f"peak {peak_capture / 2**20:.1f} MiB; replayed-step ratio remat/plain "
+        f"{tg[2] / times_p[2]:.3f}, peak memory {peak_capture / peak_p:.3f}")
 
-    # vertices free too
+    # the vertices and the field of view free too (the pack rebuilt from
+    # moving vertices, the camera's tangent on the device): two steps, the
+    # second a replay
+    free_too = ("vertices", "cam_fov")
     init_v, step_v = make_train_step(
-        None, cfg, scene, optimizer=free("kd", "lights_rgb", "vertices"), device=dev)
+        None, cfg, scene, optimizer=adam("kd", "lights_rgb", *free_too), device=dev)
     state_v = init_v(start)
-    state_v, loss_v, times_v, _, _ = timed_steps(step_v, state_v, scene_d, coords,
-                                                 target, 1)
-    moved = float((state_v.params["vertices"].detach().cpu()
-                   - scene.geometry.vertices).abs().sum())
-    if not np.isfinite(loss_v[0]) or not moved > 0.0:
-        raise AssertionError(f"training with free vertices: loss {loss_v[0]}, "
-                             f"vertices moved by {moved}")
-    say("train", f"one step with the vertices free too: loss {loss_v[0]:.4e}, "
-        f"vertices moved by {moved:.3f} in all, {times_v[0]:.1f} ms")
+    _, loss_v, times_v, _, _ = timed_steps(step_v, state_v, scene_d, coords, target, 2)
+    moved = {k: float((state_v.params[k].detach().cpu() - start[k]).abs().sum())
+             for k in free_too}
+    if (not all(np.isfinite(loss_v)) or not all(m > 0.0 for m in moved.values())
+            or step_v.plan.last_call != "replay"):
+        raise AssertionError(f"training with {free_too} free: losses {loss_v}, moved "
+                             f"by {moved}, last call {step_v.plan.last_call}")
+    say("train", f"vertices and cam_fov free too, captured: losses {loss_v[0]:.4e}, "
+        f"{loss_v[1]:.4e}; moved in all by {moved}; steps "
+        f"{[round(t, 1) for t in times_v]} ms (the first with its capture)")
 
     # save / resume round trip
     with tempfile.TemporaryDirectory() as tmp:
@@ -1083,15 +1216,127 @@ def check_training(dev, smi, want_profile):
     if not same or not all(p.is_cuda for p in restored.params.values()):
         raise AssertionError("the train state did not come back bit-equal on the card")
     say("train", f"save / resume_or_init round trip at step {state.step} "
-        f"({path.rsplit('/', 1)[-1]}): parameters and Adam moments bit-equal, on the card")
+        f"({path.rsplit('/', 1)[-1]}): parameters and Adam moments bit-equal, on the "
+        "card")
 
     if want_profile:
-        for what, fn, st in (("remat=True", step_fn, init_state(start)),
-                             ("remat=False", step_plain, init_plain(start))):
-            fn(st, scene_d, coords, target)
-            profile_call(lambda: fn(st, scene_d, coords, target),
-                         f"training step, spheres {size}x{size}, {what}")
+        profile_call(lambda: step_fn(state, scene_d, coords, target),
+                     f"training step, spheres {size}x{size}, remat=True, captured "
+                     "(one replay)")
+        eager_state = init_eager(start)
+        step_eager(eager_state, scene_d, coords, target)
+        profile_call(lambda: step_eager(eager_state, scene_d, coords, target),
+                     f"training step, spheres {size}x{size}, remat=True, eager")
     return per_step
+
+
+def check_capturable_adam(dev):
+    """Capturable Adam in a captured step (every group free, 32x32) moves
+    each group as optax's adam would on the same gradients, step by step:
+    the first step eager, the next two replays of the graph."""
+    f = np.float32
+    scene = make_sphere_scene(32, 32, **SPHERES)
+    cfg = RenderConfig(mode="cpu", quantize="smooth", backend="cuda", ray_chunk=1024,
+                       diff_max_depth=2)
+    init_state, step_fn = make_train_step(None, cfg, scene, learning_rate=1e-2, device=dev)
+    state = init_state(extract_params(scene))
+    if not all(p.requires_grad for p in state.params.values()):
+        raise AssertionError("the default optimizer does not hold every group")
+    coords = camera_ops.cpu_subpixel_coords_traced(32, 32, torch.arange(32 * 32 * 4,
+                                                                         device=dev))
+    target = torch.zeros((32 * 32, 3), device=dev)
+    m = {k: np.zeros(tuple(p.shape), f) for k, p in state.params.items()}
+    v = {k: np.zeros(tuple(p.shape), f) for k, p in state.params.items()}
+    worst = 0.0
+    for t in range(1, 4):
+        before = {k: p.detach().cpu().numpy().copy() for k, p in state.params.items()}
+        step_fn(state, scene, coords, target)
+        for k in PARAM_KEYS:
+            g = state.params[k].grad.cpu().numpy()
+            m[k] = f(0.9) * m[k] + f(1 - 0.9) * g
+            v[k] = f(0.999) * v[k] + f(1 - 0.999) * g * g
+            upd = f(-1e-2) * (m[k] / f(1 - 0.9 ** t)) / (
+                np.sqrt(v[k] / f(1 - 0.999 ** t)) + f(1e-8))
+            got = state.params[k].detach().cpu().numpy()
+            if not np.allclose(got, before[k] + upd, rtol=1e-5, atol=1e-7):
+                raise AssertionError(f"capturable Adam: {k} at step {t} off by "
+                                     f"{np.abs(got - before[k] - upd).max():.3e}")
+            worst = max(worst, float(np.abs(got - before[k] - upd).max()))
+    plan = step_fn.plan
+    if plan.last_call != "replay" or plan.captures != 1:
+        raise AssertionError("capturable Adam: the steps were not replayed")
+    # a state restored from a checkpoint holds other optimizer tensors: the
+    # step captures again, and goes on as the saved state does
+    with tempfile.TemporaryDirectory() as tmp:
+        save_train_state(tmp, state)
+        restored, _ = resume_or_init(tmp, init_state(extract_params(scene)))
+    again = [float(step_fn(st, scene, coords, target)[1]) for st in (restored, state)]
+    if plan.captures != 3 or again[0] != again[1]:
+        raise AssertionError(f"capturable Adam: {plan.captures} captures, the restored "
+                             f"state's next loss {again[0]!r}, the saved state's {again[1]!r}")
+    say("train", f"capturable Adam (the default optimizer on the card) in a captured "
+        f"step, all 13 groups free, spheres 32x32: 3 steps equal to optax's adam update "
+        f"of the same gradients within rtol 1e-5 / atol 1e-7 (largest |d| {worst:.3e}); "
+        "steps 2-3 replays; a state restored from its checkpoint captures again and "
+        "its next loss equals the saved state's")
+
+    # the blurred loss (the whole image's residual, one backward pass)
+    # captured too: against the eager step
+    blur = []
+    for plan_arg in (None, False):
+        init_b, step_b = make_train_step(None, cfg, scene, optimizer=adam("kd"),
+                                         loss_blur=1.0, device=dev, plan=plan_arg)
+        st = init_b(extract_params(scene))
+        blur.append([float(step_b(st, scene, coords, target)[1]) for _ in range(2)])
+        if plan_arg is None and step_b.plan.last_call != "replay":
+            raise AssertionError("loss_blur: the step was not replayed")
+    if blur[0][0] != blur[1][0] or not np.allclose(blur[0], blur[1], rtol=GRAD_RTOL):
+        raise AssertionError(f"loss_blur: captured losses {blur[0]}, eager {blur[1]}")
+    say("train", f"loss_blur=1.0, spheres 32x32, captured: losses {blur[0]} against "
+        f"eager {blur[1]} (step 1 bit-equal, step 2 a replay)")
+
+
+def check_device_tanf(dev):
+    """`ops.camera.tanf` on the card bit-equal to the host's libm `tanf`
+    over 20,001 fields of view from 1 to 179 degrees and every float32
+    within 20,000 ulps of the kernel's and the reduction's thresholds."""
+    fov = np.linspace(1.0, 179.0, 20001).astype(np.float32)
+    edges = [np.float32(x).view(np.int32) for x in (np.pi / 4, 0.6744, np.pi / 2)]
+    x = np.concatenate([fov * np.float32(np.pi / 360.0)] + [
+        np.arange(e - 20000, e + 20000, dtype=np.int32).view(np.float32) for e in edges])
+    libm = camera_ops._libm_tanf()
+    want = np.array([libm(float(a)) for a in x], np.float32)
+    got = camera_ops.tanf(torch.from_numpy(x).to(dev)).cpu().numpy()
+    n_diff = int((got.view(np.int32) != want.view(np.int32)).sum())
+    if n_diff:
+        raise AssertionError(f"tanf on the card: {n_diff} of {x.size} values differ "
+                             "from libm's")
+    say("train", f"tanf on the card bit-equal to the host libm's tanf on {x.size} "
+        "values (20,001 fields of view, 1-179 degrees; 120,000 floats around pi/4, "
+        "0.6744 and pi/2)")
+
+
+def check_parked_chunk(pack):
+    """K1, K2, K3 and K3's backward on one chunk of rays that are all
+    parked (origin PARKED, direction 0), as every bounce step after the
+    last live one is in a captured training step: culling keeps no pair
+    tile, both sweeps miss on every ray, bit-equal to their plain versions,
+    and the fetch and its gradient match the plain ones."""
+    n = RenderConfig().ray_chunk
+    dev = pack.v0.device
+    rays = (torch.full((n, 3), PARKED, device=dev), torch.zeros((n, 3), device=dev))
+    args = sweep_args(rays, pack)
+    if int(args[5].sum()):
+        raise AssertionError(f"parked rays: culling kept {int(args[5].sum())} pair tiles")
+    for name, (kern, plain) in SWEEPS.items():
+        got = require_sweep_equal(name, kern(*args), plain(*args), "all parked")[0]
+        if bool(torch.isfinite(got).any()):
+            raise AssertionError(f"{name}: a parked ray hit something")
+    idx = ck.nearest_hit(*args)[1]
+    check_fetch_gradient(pack, idx, "all parked, every row into slot 0")
+    say("kernels", f"all-parked chunk ({n} rays): no pair tile kept; nearest_hit and "
+        "nearest_dist miss on every ray, bit-equal to their plain versions; the fetch "
+        "and its gradient as the plain ones")
 
 
 def run_training_phases(dev, smi, want_profile, results):
@@ -1107,7 +1352,10 @@ def run_training_phases(dev, smi, want_profile, results):
     results["grid_4096"]["fetch_rows"]["backward"] = check_fetch_gradient(
         grid_pack, winners(cpu_primary_rays(grid, 4096), grid_pack), "grid")
     del grid, grid_pack
+    check_parked_chunk(sph_pack)
     check_gradient_against_plain(dev)
+    check_device_tanf(dev)
+    check_capturable_adam(dev)
     return check_training(dev, smi, want_profile)
 
 
@@ -1389,9 +1637,17 @@ def check_shard_train_step(dev, smi):
 
 def shard_rank_main(argv) -> int:
     """One of two gloo ranks sharing the card (`--shard-rank RANK PORT OUT
-    DEVICE`): renders the SHARD_SIZE sphere frame sharded over each of
+    DEVICE GO`): waits until the file GO exists (the ranks are started early
+    so that their imports overlap the other phases; they touch the card only
+    after it), then renders the SHARD_SIZE sphere frame sharded over each of
     SHARD_MESHES on DEVICE and writes it to OUT.<mesh>.<rank>.npy."""
-    rank, port, out, device = int(argv[1]), argv[2], argv[3], argv[4]
+    rank, port, out, device, go = int(argv[1]), argv[2], argv[3], argv[4], argv[5]
+    deadline = time.monotonic() + RANK_WAIT_S
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            print(f"rank {rank}: no go after {RANK_WAIT_S} s", flush=True)
+            return 1
+        time.sleep(0.05)
     multihost.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo",
                          timeout=datetime.timedelta(seconds=300))
     scene = make_sphere_scene(SHARD_SIZE, SHARD_SIZE, **SPHERES)
@@ -1405,45 +1661,62 @@ def shard_rank_main(argv) -> int:
     return 0
 
 
-def check_two_gloo_ranks(dev):
+RANK_WAIT_S = 900  # a rank whose go never comes gives up
+
+
+class GlooRanks:
+    """The two processes of `check_two_gloo_ranks`, started at once: each
+    imports torch and the port (seconds) while this process checks the
+    card, and waits for `go()` before it touches the card. `stop()` ends
+    any that still run."""
+
+    def __init__(self, dev):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        self.tmp = tempfile.TemporaryDirectory()
+        self.out, self._go = f"{self.tmp.name}/frame", f"{self.tmp.name}/go"
+        self.procs = [subprocess.Popen([sys.executable, __file__, "--shard-rank", str(r),
+                                        str(port), self.out, str(dev), self._go],
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+                      for r in range(2)]
+
+    def go(self) -> list:
+        """Let the ranks run; returns their output once both have ended."""
+        open(self._go, "w").close()
+        return [p.communicate(timeout=400)[0] for p in self.procs]
+
+    def stop(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        self.tmp.cleanup()
+
+
+def check_two_gloo_ranks(dev, ranks: GlooRanks):
     """Two processes on the one card in a gloo group render the
     SHARD_SIZE frame over (2,1) and (1,2): each rank's image uint8-equal to
     the single-process frame. Nothing is timed: two ranks on one card
     measure contention."""
     ref = u8(SceneRenderer(make_sphere_scene(SHARD_SIZE, SHARD_SIZE, **SPHERES),
                            RenderConfig(backend="cuda"), dev).render_device())
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    with tempfile.TemporaryDirectory() as tmp:
-        out = f"{tmp}/frame"
-        procs = [subprocess.Popen([sys.executable, __file__, "--shard-rank", str(r),
-                                   str(port), out, str(dev)], stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for r in range(2)]
-        logs = []
-        try:
-            for p in procs:
-                logs.append(p.communicate(timeout=400)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        if any(p.returncode != 0 for p in procs):
-            raise AssertionError("a gloo rank failed:\n" + "\n---\n".join(
-                log[-4000:] for log in logs))
-        for line in "".join(logs).splitlines():
-            if line.startswith("rank "):
-                say("shard", line)
-        for t, s in SHARD_MESHES:
-            for r in range(2):
-                img = np.load(f"{out}.{t}x{s}.{r}.npy")
-                got = np.trunc(img).astype(np.int32)
-                n_diff = int((got != ref).any(-1).sum())
-                if got.shape != ref.shape or n_diff:
-                    raise AssertionError(f"gloo rank {r}, mesh ({t},{s}): {n_diff} pixels "
-                                         "differ from the single-process frame")
+    logs = ranks.go()
+    if any(p.returncode != 0 for p in ranks.procs):
+        raise AssertionError("a gloo rank failed:\n" + "\n---\n".join(
+            log[-4000:] for log in logs))
+    for line in "".join(logs).splitlines():
+        if line.startswith("rank "):
+            say("shard", line)
+    for t, s in SHARD_MESHES:
+        for r in range(2):
+            img = np.load(f"{ranks.out}.{t}x{s}.{r}.npy")
+            got = np.trunc(img).astype(np.int32)
+            n_diff = int((got != ref).any(-1).sum())
+            if got.shape != ref.shape or n_diff:
+                raise AssertionError(f"gloo rank {r}, mesh ({t},{s}): {n_diff} pixels "
+                                     "differ from the single-process frame")
     say("shard", f"two gloo ranks sharing the card, meshes {SHARD_MESHES}: every rank's "
         f"{SHARD_SIZE}x{SHARD_SIZE} frame uint8-equal to the single-process frame")
 
@@ -1462,8 +1735,16 @@ def main(argv) -> int:
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     say("device", f"{kind} x{count}; nvidia-smi: {smi}; torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}")
+        f"CUDA {torch.version.cuda}; imports took {T_START - T_IMPORT:.1f} s")
+    ranks = GlooRanks(dev)
+    try:
+        return check_all(dev, smi, kind, count, want_profile, ranks)
+    finally:
+        ranks.stop()
 
+
+def check_all(dev, smi, kind, count, want_profile, ranks) -> int:
+    """Every phase, in order; raises on the first failure."""
     t0 = time.perf_counter()
     path = build.library_path()
     ck.build_kernels()
@@ -1506,7 +1787,7 @@ def main(argv) -> int:
     launches["shard"] = check_shard_frame(spheres512, cfg, renderer, cuda_img, smi,
                                           want_profile)
     check_shard_train_step(dev, smi)
-    check_two_gloo_ranks(dev)
+    check_two_gloo_ranks(dev, ranks)
 
     # the exact reference is brute force; the "torch" backend's default
     # configuration (object-level cull) is held to the same frame up to the

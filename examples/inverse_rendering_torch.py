@@ -125,9 +125,11 @@ def main() -> None:
                      float(env("RGT_DEMO_LNOISE", "0.15")))
 
     # one Adam group per free parameter group, each at its own rate; every
-    # other group is known exactly and stays frozen
+    # other group is known exactly and stays frozen. On the card the step is
+    # a captured CUDA graph, which needs Adam's step count on the device.
     def optimizer(p):
-        return torch.optim.Adam([{"params": [p[k]], "lr": lr[k]} for k in free])
+        return torch.optim.Adam([{"params": [p[k]], "lr": lr[k]} for k in free],
+                                capturable=torch.device(device).type == "cuda")
 
     init_state, step_fn = make_train_step(None, cfg, scene, optimizer=optimizer,
                                           loss_blur=loss_blur, device=device)

@@ -34,13 +34,94 @@ def _libm_tanf():
     return fn
 
 
+# glibc's float tanf as tensor operations: fdlibm's float kernel
+# (k_tanf.c) behind a reduction of x - pi/2 in float64 for pi/4 < |x| <
+# 3*pi/4, one correctly rounded, unfused operation per C operation in the
+# C order, so it returns libm's value bit for bit (checked on the CPU and on
+# the card against `_libm_tanf`; fdlibm's all-float reduction misses by an
+# ulp near pi/2). It reads nothing back to the host.
+def _f32_bits(i: int) -> float:
+    return float(np.array([i], np.uint32).view(np.float32)[0])
+
+
+_T = tuple(float(np.float32(c)) for c in (
+    3.3333334327e-01, 1.3333334029e-01, 5.3968254477e-02, 2.1869488060e-02,
+    8.8632395491e-03, 3.5920790397e-03, 1.4562094584e-03, 5.8804126456e-04,
+    2.4646313977e-04, 7.8179444245e-05, 7.1407252108e-05, -1.8558637748e-05,
+    2.5907305826e-05))
+_PIO4, _PIO4LO = _f32_bits(0x3f490fda), _f32_bits(0x33222168)
+_PIO2_HI, _PIO2_LO = math.pi / 2, 6.123233995736766e-17  # pi/2 = HI + LO
+
+
+def _low_bits_cleared(x):
+    """x with the low 12 bits of its float32 word cleared."""
+    return (x.view(torch.int32) & -4096).view(torch.float32)
+
+
+def _kernel_tanf(x, y, iy: int):
+    """__kernel_tanf(x, y, iy): tan(x + y) (iy = 1, |x| >= 2**-13) or
+    -1/tan(x + y) (iy = -1)."""
+    hx = x.view(torch.int32)
+    big = (hx & 0x7fffffff) >= 0x3f2ca140  # |x| >= 0.6744
+    sign = torch.where(hx < 0, -1.0, 1.0)
+    xa, ya = torch.where(hx < 0, -x, x), torch.where(hx < 0, -y, y)
+    xb = (_PIO4 - xa) + (_PIO4LO - ya)
+    x = torch.where(big, xb, x)
+    y = torch.where(big, 0.0, y)
+    z = x * x
+    w = z * z
+    r = _T[1] + w * (_T[3] + w * (_T[5] + w * (_T[7] + w * (_T[9] + w * _T[11]))))
+    v = z * (_T[2] + w * (_T[4] + w * (_T[6] + w * (_T[8] + w * (_T[10] + w * _T[12])))))
+    s = z * x
+    r = y + z * (s * (r + v) + y)
+    r = r + _T[0] * s
+    w = x + r
+    v = torch.full_like(x, float(iy))
+    out_big = sign * (v - 2.0 * (x - (w * w / (w + v) - r)))
+    # |pi/4 - x| under 2**-13: the kernel's own short form
+    out_near = (sign * iy) * (1.0 - (2 * iy) * x)
+    out_big = torch.where(x.abs() < 2.0 ** -13, out_near, out_big)
+    if iy == 1:
+        out = w
+    else:  # -1/(x + r), computed accurately
+        z = _low_bits_cleared(w)
+        v = r - (z - x)
+        a = -(torch.ones_like(w) / w)
+        t = _low_bits_cleared(a)
+        s = 1.0 + t * z
+        out = t + a * (s + t * v)
+    out = torch.where(big, out_big, out)
+    if iy == -1:  # |x| < 2**-13
+        out = torch.where((hx & 0x7fffffff) < 0x39000000,
+                          -(torch.ones_like(x) / x), out)
+    return out
+
+
+def tanf(x):
+    """libm's float32 `tanf` of a float32 tensor, bit for bit, on any
+    device, for |x| in [2**-13, 3*pi/4) (an image-plane half-angle
+    fov*pi/360 with fov in (0.015, 270) degrees); NaN outside that range."""
+    bits = x.abs().view(torch.int32)
+    # |x| <= pi/4: the kernel directly
+    near = _kernel_tanf(x, torch.zeros_like(x), 1)
+    # pi/4 < |x| < 3*pi/4: -1/tan(x - sign(x) pi/2), the difference taken in
+    # float64 and split into two floats
+    d = x.double()
+    d = torch.where(x < 0, (d + _PIO2_HI) + _PIO2_LO, (d - _PIO2_HI) - _PIO2_LO)
+    y0 = d.float()
+    y1 = (d - y0.double()).float()
+    out = torch.where(bits <= 0x3f490fda, near, _kernel_tanf(y0, y1, -1))
+    ok = (bits >= 0x39000000) & (bits < 0x4016cbe4)
+    return torch.where(ok, out, float("nan"))
+
+
 class _Tanf(torch.autograd.Function):
-    """tan of a () float32 tensor with libm's value (one host round trip)
-    and the derivative 1 + tan^2."""
+    """tan of a () float32 tensor with libm's value (`tanf`, on the
+    tensor's device) and the derivative 1 + tan^2."""
 
     @staticmethod
     def forward(ctx, x):
-        t = x.new_tensor(_libm_tanf()(x.item()))
+        t = tanf(x)
         ctx.save_for_backward(t)
         return t
 
@@ -74,7 +155,12 @@ def _camera_basis_host(camera: Camera):
                  for a in (u, v, C))
 
 
-def _camera_basis_traced(camera: Camera):
+def camera_basis_on_device(camera: Camera):
+    """`camera_basis` as tensor ops on the camera's device whether or not a
+    camera tensor requires grad (then recorded by autograd): the same
+    values, and nothing read back to the host (what a captured training
+    step computes)."""
+
     def norm(a):
         sq = a * a
         return a / sqrt_rn((sq[0] + sq[1]) + sq[2])
@@ -85,8 +171,9 @@ def _camera_basis_traced(camera: Camera):
                      u[2] * v[0] - u[0] * v[2],
                      u[0] * v[1] - u[1] * v[0]])
     tan = _Tanf.apply(camera.fov * float(np.float32(math.pi / 360.0)))
-    # a tensor numerator: float / tensor is reciprocal-then-multiply in torch
-    L = tan.new_tensor(float(camera.width)) / (2.0 * tan)
+    # a tensor numerator: float / tensor is reciprocal-then-multiply in torch;
+    # filled on the device (a tensor made from Python data is a host copy)
+    L = torch.full_like(tan, float(camera.width)) / (2.0 * tan)
     return u, v, camera.position + w * L
 
 
@@ -98,14 +185,14 @@ def camera_basis(camera: Camera):
     Where no camera tensor requires grad (every plain render) the basis is
     computed on the host in numpy. Where one does, and grad is enabled, the
     same operations run as tensor ops, so u, v and C carry gradient to
-    `position`, `u`, `v` and `fov`; the tangent keeps libm's value (one host
-    round trip) and gets its derivative 1 + tan^2 from `_Tanf`. Every
+    `position`, `u`, `v` and `fov`; the tangent keeps libm's value (`tanf`,
+    on the device) and gets its derivative 1 + tan^2 from `_Tanf`. Every
     operation of either path is a correctly rounded float32 operation in
     the same order, so the two bases differ by 0 ulp (held by a test on the
     CPU)."""
     traced = torch.is_grad_enabled() and any(
         t.requires_grad for t in (camera.position, camera.u, camera.v, camera.fov))
-    return _camera_basis_traced(camera) if traced else _camera_basis_host(camera)
+    return camera_basis_on_device(camera) if traced else _camera_basis_host(camera)
 
 
 def cpu_subpixel_coords_traced(width: int, height: int, ray_ids):

@@ -32,6 +32,12 @@ group stays frozen, which is what the JAX package does with `optax.masked`.
 A step updates the state's tensors in place, as torch optimizers do, and
 returns the same state object.
 
+On the card a one-device step is captured into a CUDA graph and replayed
+(`utils.step_graph.StepPlan`), as the JAX package jits its step; it then
+traces every bounce step of every chunk (no early exit: dead steps add
+exact zeros). A mesh and backend "torch" with partitioning stay eager
+(`utils.step_graph.step_graph_blocker` says why).
+
 quantize="smooth" is required: "match" clamps at every color operation and
 zeroes the gradient wherever an intermediate saturates. Hard shadows and
 winner selection stay piecewise constant: no gradient crosses a silhouette
@@ -62,6 +68,12 @@ from raytracing_gpu_tpu_torch.render import (
     required_depth,
     resolve_device,
     trace_chunks,
+)
+from raytracing_gpu_tpu_torch.utils.step_graph import (
+    StepPlan,
+    require_capturable,
+    step_graph_blocker,
+    uses_step_graph,
 )
 
 PARAM_KEYS = ("vertices", "normals", "lights_rgb", "lights_v", "ka", "kd", "ks",
@@ -157,19 +169,26 @@ def predict_pixels(scene: Scene, cfg: RenderConfig, depth: int, coords,
     return colors.reshape(-1, 4, 3).mean(1)
 
 
-def _blur_residual(err, n_pixels: int, sigma: float):
+def _blur_taps(sigma: float, device):
+    """The (2r+1,) normalised gaussian of `_blur_residual`, r = 3 sigma."""
+    r = max(1, int(round(3.0 * sigma)))
+    x = np.arange(-r, r + 1, dtype=np.float32)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return torch.from_numpy(k / k.sum()).to(device)
+
+
+def _blur_residual(err, n_pixels: int, sigma: float, taps=None):
     """Separable gaussian blur (edge-replicated, radius 3 sigma) of a
     per-pixel residual (n_pixels, 3) laid out as a row-major square image:
     an optional low-pass weighting of the image loss. Blur is linear, so the
     minimum stays at residual 0. It does not create gradients across hard
-    visibility boundaries."""
+    visibility boundaries. `taps`: `_blur_taps(sigma, err.device)`, made
+    once (made here, it is a copy from the host in every call)."""
     H = W = int(round(n_pixels ** 0.5))
     if H * W != n_pixels:
         raise ValueError(f"loss_blur needs a square image (n_pixels={n_pixels})")
-    r = max(1, int(round(3.0 * sigma)))
-    x = np.arange(-r, r + 1, dtype=np.float32)
-    k = np.exp(-0.5 * (x / sigma) ** 2)
-    k = torch.from_numpy(k / k.sum()).to(err.device)
+    k = _blur_taps(sigma, err.device) if taps is None else taps
+    r = k.shape[0] // 2
 
     def conv(a, axis):
         n = a.shape[axis]
@@ -185,8 +204,11 @@ def _blur_residual(err, n_pixels: int, sigma: float):
     return conv(conv(err.reshape(H, W, 3), 0), 1).reshape(-1, 3)
 
 
-def _default_optimizer(learning_rate: float) -> Callable:
-    return lambda params: torch.optim.Adam(list(params.values()), lr=learning_rate)
+def _default_optimizer(learning_rate: float, capturable: bool = False) -> Callable:
+    """Adam over every group; `capturable` (a captured step on the card)
+    keeps its step count on the device."""
+    return lambda params: torch.optim.Adam(list(params.values()), lr=learning_rate,
+                                           capturable=capturable)
 
 
 def _new_state(params: dict, optimizer: Callable, device, mesh=None) -> TrainState:
@@ -204,7 +226,7 @@ def _new_state(params: dict, optimizer: Callable, device, mesh=None) -> TrainSta
 
 def make_train_step(mesh, cfg: RenderConfig, scene: Scene, optimizer=None,
                     learning_rate: float = 1e-2, loss_blur: float = 0.0,
-                    device="cuda"):
+                    device="cuda", plan: bool | None = None):
     """Build (init_state, step_fn) for inverse rendering on `scene`'s
     structure, on `device` (`"cuda"` raises without a card), sharded over
     `mesh` (a `parallel.mesh.Mesh`; None is one device).
@@ -212,7 +234,20 @@ def make_train_step(mesh, cfg: RenderConfig, scene: Scene, optimizer=None,
     init_state(params) -> TrainState: copies of this rank's slices of the
     13 groups (`shard_params`) on the device. `optimizer` maps that params
     dict to a `torch.optim.Optimizer` over the groups to train (default:
-    Adam at `learning_rate` over all of them).
+    Adam at `learning_rate` over all of them, `capturable=True` where the
+    step is captured).
+
+    plan: None (the default) steps through a `utils.step_graph.StepPlan`
+    wherever `uses_step_graph(cfg, device, mesh)` says: on a card, one
+    device, and not backend "torch" with partitioning. There the step is
+    captured into a CUDA graph on the first
+    call with a state (that call is a real step, run eagerly) and replayed
+    after; it traces every bounce step (no early exit). True takes the plan
+    on the CPU too, where it runs uncaptured (raising where
+    `step_graph_blocker` names a reason); False steps eagerly. A captured
+    step needs an optimizer that reads nothing back to the host: one with
+    a `capturable` option (Adam) must be built with `capturable=True`, or
+    `init_state` and `step_fn` raise ValueError; SGD needs nothing.
 
     step_fn(state, fixed_geo, fixed_rest, coords, target) -> (state, loss)
       fixed_geo, fixed_rest: the whole scene's geometry and the rest of it
@@ -234,6 +269,7 @@ def make_train_step(mesh, cfg: RenderConfig, scene: Scene, optimizer=None,
     chunk by chunk (`cfg.ray_chunk` rays), so one chunk's graph is alive at
     a time; the gradient is the whole image's up to the order of the sums.
     `loss_blur > 0` needs one tile: the blur window would straddle tiles.
+    `step_fn.plan` is the `StepPlan`, or None for an eager step.
     """
     if cfg.quantize != "smooth":
         raise ValueError("training requires quantize='smooth' (match mode "
@@ -248,27 +284,40 @@ def make_train_step(mesh, cfg: RenderConfig, scene: Scene, optimizer=None,
     scene_group = None if mesh is None else mesh.scene_group
     tiles_group = None if mesh is None else mesh.tiles_group
     device = resolve_device(device)
-    optimizer = optimizer or _default_optimizer(learning_rate)
+    blocker = step_graph_blocker(cfg, mesh)
+    if plan and blocker:
+        raise ValueError(f"plan=True, but this step cannot be captured: {blocker}")
+    use_plan = uses_step_graph(cfg, device, mesh) if plan is None else plan
+    captured = use_plan and device.type == "cuda"
+    optimizer = optimizer or _default_optimizer(learning_rate, captured)
     max_nr = float(scene.materials.nr.max())
     depth = required_depth(max_nr, cfg.reflect_cutoff, cfg.diff_max_depth)
+    blur_taps = _blur_taps(loss_blur, device) if loss_blur > 0.0 else None
 
     def init_state(params: dict) -> TrainState:
-        return _new_state(params, optimizer, device, mesh)
+        state = _new_state(params, optimizer, device, mesh)
+        if captured:
+            require_capturable(state.opt_state)
+        return state
 
-    def loss_and_grads(params, scene_fixed, coords, target, n_pixels):
+    def loss_and_grads(params, scene_fixed, coords, target, n_pixels,
+                       in_plan=False):
         """This tile's loss; the free groups' gradients from its rays are
-        left in their `.grad`."""
+        left in their `.grad`. `in_plan`: the step of a `StepPlan`, which
+        reads nothing back to the host (the camera basis on the device,
+        every bounce step traced)."""
         scene_now = insert_params(scene_fixed, params)
         if cfg.partitioning != "none" and cfg.backend == "torch":
             scene_now, _ = with_accel(scene_now, cfg.partitioning)
-        u, v, C = camera_ops.camera_basis(scene_now.camera)
+        basis = camera_ops.camera_basis_on_device if in_plan else camera_ops.camera_basis
+        u, v, C = basis(scene_now.camera)
         origins, dirs = camera_ops.make_rays(u, v, C, params["cam_position"],
                                              coords)
         scale = 1.0 / (3.0 * n_pixels)
         chunkwise = loss_blur <= 0.0 and min(cfg.ray_chunk, coords.shape[0]) % 4 == 0
         total, kept = 0.0, []
         for c0, colors in trace_chunks(scene_now, origins, dirs, cfg, depth,
-                                       scene_group=scene_group):
+                                       scene_group=scene_group, fixed_depth=in_plan):
             if not chunkwise:
                 kept.append(colors)
                 continue
@@ -283,7 +332,7 @@ def make_train_step(mesh, cfg: RenderConfig, scene: Scene, optimizer=None,
             return total
         err = torch.cat(kept).reshape(-1, 4, 3).mean(1) - target
         if loss_blur > 0.0:
-            err = _blur_residual(err, n_pixels, loss_blur)
+            err = _blur_residual(err, n_pixels, loss_blur, blur_taps)
         loss = (err * err).sum() * scale
         loss.backward()
         return loss.detach()
@@ -304,6 +353,11 @@ def make_train_step(mesh, cfg: RenderConfig, scene: Scene, optimizer=None,
             at += p.numel()
         return flat[0]
 
+    step_plan = StepPlan(
+        lambda params, scene_fixed, coords, target: loss_and_grads(
+            params, scene_fixed, coords, target, target.shape[0], in_plan=True),
+        device) if use_plan else None
+
     def step_fn(state: TrainState, *args):
         if len(args) == 4:
             fixed_geo, fixed_rest, coords, target = args
@@ -323,22 +377,29 @@ def make_train_step(mesh, cfg: RenderConfig, scene: Scene, optimizer=None,
             geo = shard_geometry(geo, mesh)
             coords, target = shard_rows(coords, mesh, TILES), shard_rows(target, mesh, TILES)
         scene_fixed = dataclasses.replace(fixed_rest, geometry=geo).to(device)
-        opt = state.opt_state
-        opt.zero_grad(set_to_none=True)
-        loss = loss_and_grads(state.params, scene_fixed, coords.to(device),
-                              target.to(device), n_pixels)
-        if tiles_group is not None:
-            loss = sum_over_tiles(state.params, loss)
-        opt.step()
+        coords, target = coords.to(device), target.to(device)
+        if step_plan is not None:
+            loss = step_plan.step(state, scene_fixed, coords, target)
+        else:
+            opt = state.opt_state
+            opt.zero_grad(set_to_none=True)
+            loss = loss_and_grads(state.params, scene_fixed, coords, target, n_pixels)
+            if tiles_group is not None:
+                loss = sum_over_tiles(state.params, loss)
+            opt.step()
         state.step += 1
         return state, loss
 
+    step_fn.plan = step_plan
     return init_state, step_fn
 
 
 def init_train_state(scene: Scene, optimizer=None, learning_rate: float = 1e-2,
                      device="cuda") -> TrainState:
-    """A fresh TrainState at the scene's own parameters."""
+    """A fresh TrainState at the scene's own parameters (the default Adam
+    is capturable on a card, as a captured step needs)."""
+    device = resolve_device(device)
     return _new_state(extract_params(scene),
-                      optimizer or _default_optimizer(learning_rate),
-                      resolve_device(device))
+                      optimizer or _default_optimizer(learning_rate,
+                                                      device.type == "cuda"),
+                      device)

@@ -133,12 +133,16 @@ def _bounce_step(scene, cfg, cops, pack, gpu_semantics, tape, scene_group,
 
 
 def _trace(scene, origins, dirs, cfg, pack, n_bounces: int, gpu_semantics: bool,
-           scene_group=None):
+           scene_group=None, fixed_depth: bool = False):
     """The bounce loop of both pipelines. CPU pipeline: a ray is traced
     while coef >= cutoff. GPU pipeline: the first bounce is unconditional and
     a ray stays alive while nr_acc > cutoff (strictly). With a
     `scene_group` the scene holds this rank's triangles only (see
-    `ops.intersect`)."""
+    `ops.intersect`). The loop stops once no ray is alive (a host read per
+    bounce), unless `fixed_depth`: then it runs all `n_bounces` steps, as
+    the JAX package's differentiable strategy does, and reads nothing back
+    (what a captured training step runs). A step whose rays are all dead
+    adds exact zeros, so the colors are the same either way."""
     cops = ColorOps(cfg.quantize)
     R = origins.shape[0]
     cutoff = f32(cfg.reflect_cutoff)
@@ -153,7 +157,7 @@ def _trace(scene, origins, dirs, cfg, pack, n_bounces: int, gpu_semantics: bool,
         # every shard of a scene group holds the same rays and the combined
         # hits, so their loops end together; ranks of a tiles group may stop
         # at different bounces, so no collective may cross that group here
-        if not bool(alive.any()):
+        if not fixed_depth and not bool(alive.any()):
             break
         if remat:
             tape = SweepTape()
@@ -213,28 +217,27 @@ def _kernel_pack(scene, cfg):
 
 
 def trace_chunks(scene, origins, dirs, cfg, depth, pack=None,
-                 gpu_semantics=False, scene_group=None):
+                 gpu_semantics=False, scene_group=None, fixed_depth=False):
     """Trace explicit ray arrays `cfg.ray_chunk` rays at a time: yields
     (first ray, colors of the chunk's rays) chunk by chunk, so a caller can
     run a backward pass per chunk and keep one chunk's graph alive at a
     time. The tail chunk is padded to the chunk size with rays from the
     origin along (1,1,1), as the JAX package pads it (the matmul backend
-    recentres on every ray of a chunk); their colors are dropped."""
+    recentres on every ray of a chunk); their colors are dropped.
+    `fixed_depth`: every chunk runs every bounce step (see `_trace`)."""
     R = origins.shape[0]
     chunk = min(cfg.ray_chunk, R)
     if pack is None:
         pack = _kernel_pack(scene, cfg)
+    n_bounces = cfg.max_bounce + 1 if gpu_semantics else depth
     for c0 in range(0, R, chunk):
         o, d = origins[c0:c0 + chunk], dirs[c0:c0 + chunk]
         n = o.shape[0]
         if n < chunk:
             o = torch.cat([o, o.new_zeros((chunk - n, 3))])
             d = torch.cat([d, d.new_ones((chunk - n, 3))])
-        if gpu_semantics:
-            colors = trace_rays_gpu(scene, o, d, cfg, pack, scene_group)
-        else:
-            colors = trace_rays(scene, o, d, cfg, depth, pack, scene_group)
-        colors = colors[:n]
+        colors = _trace(scene, o, d, cfg, pack, n_bounces, gpu_semantics,
+                        scene_group, fixed_depth)[:n]
         yield c0, colors
         del colors  # the chunk's graph must not outlive the caller's use of it
 

@@ -119,14 +119,32 @@ def _current(dev):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
-def _reserved(dev) -> int:
-    """Bytes the caching allocator holds on a CUDA device once its unused
-    cached blocks are released (a graph's private pool stays); 0 on the
-    CPU."""
-    if dev.type != "cuda":
-        return 0
-    torch.cuda.empty_cache()
-    return torch.cuda.memory_reserved(dev)
+def reserved_bytes(dev) -> int:
+    """Bytes the caching allocator has reserved on a CUDA device (cached
+    free blocks included; nothing is released to measure it); 0 on the
+    CPU. A plan's `held_bytes` is the growth over its construction: the
+    segments of its graphs' private pool, its buffers, and whatever its
+    warm-up could not fit into blocks cached before."""
+    return torch.cuda.memory_reserved(dev) if dev.type == "cuda" else 0
+
+
+def capture_graph(graph, fn, stream, pool=None) -> None:
+    """Capture `fn()` into the CUDA graph `graph` on `stream`, in the memory
+    pool `pool` (None: a private one), as `torch.cuda.graph` does but
+    without its `torch.cuda.empty_cache()`: a capture leaves the blocks the
+    allocator has cached for the rest of the process where they are."""
+    torch.cuda.synchronize(stream.device)  # nothing of before is in flight
+    with torch.cuda.stream(stream):
+        graph.capture_begin(*(() if pool is None else (pool,)))
+        try:
+            fn()
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass  # the capture is already invalid: fn's error says why
+            raise
+        graph.capture_end()
 
 
 class FramePlan:
@@ -139,7 +157,8 @@ class FramePlan:
 
     After construction: `graphs` (pieces captured, 0 on the CPU),
     `capture_ms` (warm-up and capture), `held_bytes` (memory the card
-    reserved for the buffers and the graphs), `warmup_launches` and
+    reserved for the buffers and the graphs, `reserved_bytes`; nothing the
+    allocator had cached is released), `warmup_launches` and
     `graph_launches` (kernel launches of the warm-up, and of one replay of
     each piece); after each `render()`, `last_frame` (`FrameCounts`)."""
 
@@ -155,7 +174,7 @@ class FramePlan:
         self.device = dev
         self.last_frame = None
         t0 = time.perf_counter()
-        reserved = _reserved(dev)
+        reserved = reserved_bytes(dev)
         with torch.no_grad():
             # the camera basis once, on the host (camera_basis reads it back)
             self._u, self._v, self._C = camera_ops.camera_basis(frame.scene.camera)
@@ -182,7 +201,7 @@ class FramePlan:
                 with _current(dev):
                     self._capture()
         self.graphs = len(self._graphs or ())
-        self.held_bytes = _reserved(dev) - reserved
+        self.held_bytes = reserved_bytes(dev) - reserved
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
     # ---- the pieces: device work only, no host read ----------------------
@@ -253,8 +272,7 @@ class FramePlan:
                 try:
                     # on the side stream: torch's default capture stream
                     # belongs to the device current at its first use
-                    with torch.cuda.graph(graph, pool=pool, stream=side):
-                        self._pieces[name]()
+                    capture_graph(graph, self._pieces[name], side, pool)
                 except RuntimeError as e:
                     raise RuntimeError(f"SceneRenderer: capturing the frame's "
                                        f"{name!r} piece into a CUDA graph failed: "
