@@ -3,17 +3,28 @@
 
     python3 chip_smoke.py [--profile]
 
-Builds the port's CUDA kernels from raytracing_gpu_tpu_torch/csrc with nvcc,
-checks each of the six against its plain PyTorch version on the card at the
-shapes the renders give it, and drives every ported path through
-`SceneRenderer`. On the card `SceneRenderer` captures its frame into CUDA
-graphs once and replays them (`utils/frame_graph.py`); each of the five
-render cells below (spheres CPU mode, grid, grid with `f2b_tiles=8`, GPU
-mode with any-hit, `cuda_matmul`) holds its graph frame against the eager
-frame of the same config (`unroll="static"`, which stays eager): bit-equal
-images, equal launches per kernel, two replays bit-equal, both timed in
-turns, with the capture's cost and the replays and syncs of a frame, and a
-block the allocator cached before the capture still reserved after it:
+Builds the port's CUDA kernels from raytracing_gpu_tpu_torch/csrc with nvcc
+(one `nvcc -c` per source, side by side, then one link), checks each of the six intersection
+kernels against its plain PyTorch version on the card at the shapes the
+renders give it, and the frame graph's three condition kernels
+(`csrc/frame_loop.cu`: `loop_reset`, `bounce_condition`, `chunk_advance`)
+against their twins (`[loop]`: standalone frame graphs driven by seeded
+tables of alive flags against the interpreter over the same tensors, the
+sync counter against an `.item()`, and the cost of one WHILE iteration of
+each loop from loops of 1,001 against 1), and drives every
+ported path through `SceneRenderer`. On the card `SceneRenderer` captures
+its frame's pieces once and assembles them into one CUDA graph whose chunk
+and bounce loops run on the device (`utils/frame_graph.py`); each of the
+five render cells below (spheres CPU mode, grid, grid with `f2b_tiles=8`,
+GPU mode with any-hit, `cuda_matmul`) holds its graph frame against the
+eager frame of the same config (`unroll="static"`, which stays eager): one
+graph launch and no host sync per frame (both counted), bit-equal images,
+equal launches per kernel and bounce steps per chunk, the condition
+kernels launched once per chunk and per step (as they counted themselves
+on the card), two launches bit-equal, both timed in turns, the
+frame graph alone on the device, the capture's cost and each piece's node
+types, and a block the allocator cached before the capture still reserved
+after it:
 
 - CPU mode, backend "cuda": the 4,962-triangle sphere scene and the
   96,000-triangle sphere grid at 512x512 (K1, K2, K3), the kernel render
@@ -100,7 +111,10 @@ is counted for this run's data (pair tiles kept by the culling, the
 captured and one eager training step with
 torch.profiler and prints kernel launches (the three paths' side by side at
 the end) and the device's busy share, and K3's wrapper's host time by its parts at 4,096 and
-65,536 rows. Imports torch, numpy and the port only.
+65,536 rows. A trace must name the port's kernels as often as the launch
+counters counted them in the traced call; kernels in a frame graph's WHILE
+bodies it names wrongly in some cells (PERF.md section 7), and there the
+disagreement is printed instead. Imports torch, numpy and the port only.
 """
 
 from __future__ import annotations
@@ -160,7 +174,7 @@ from raytracing_gpu_tpu_torch.parallel.checkpoint import (
 from raytracing_gpu_tpu_torch.parallel.render import frame_inputs, split_scene
 from raytracing_gpu_tpu_torch.parallel.train import PARAM_KEYS
 from raytracing_gpu_tpu_torch.render import _pick_block, _swiz_ray_ids, frame_depth
-from raytracing_gpu_tpu_torch.utils import profiling
+from raytracing_gpu_tpu_torch.utils import frame_graph, profiling
 from raytracing_gpu_tpu_torch.utils.compare import assert_images_close
 from raytracing_gpu_tpu_torch.utils.image import ppm_bytes, write_png, write_ppm
 from raytracing_gpu_tpu_torch.utils.inspect import main as inspect_main
@@ -713,30 +727,66 @@ def report_frames(what, renderer, times, n_primary, smi) -> float:
     return ms
 
 
-def check_graph_cell(what, scene, cfg, dev, smi, need, none=(), n_primary=0):
-    """One render cell through `SceneRenderer`'s captured frame (CUDA graphs
-    replayed, `renderer.plan`) against the eager frame of the same config
-    rendered with `unroll="static"`, which stays eager: bit-equal images,
-    the same launches per kernel, two replays bit-equal. Both are timed in
-    turns (graph, eager, eager, graph; host clock around synchronised
-    frames); the capture's cost (ms, graphs, memory the card reserved) and
-    the replays, syncs and bounce steps of a graph frame are printed. A block
-    the allocator cached before the capture must still be reserved after it.
-    Returns (graph renderer, its frame, its launches, graph ms, eager ms)."""
+@contextlib.contextmanager
+def eager_steps():
+    """Yields a list that gets, per chunk an eager frame traces, the bounce
+    steps it took (`render._bounce_step` calls between `render._trace`
+    calls)."""
+    R = sys.modules["raytracing_gpu_tpu_torch.render"]
+    step, trace = R._bounce_step, R._trace
+    calls = []
+
+    def counting_step(*args, **kwargs):
+        calls[-1] += 1
+        return step(*args, **kwargs)
+
+    def counting_trace(*args, **kwargs):
+        calls.append(0)
+        return trace(*args, **kwargs)
+
+    R._bounce_step, R._trace = counting_step, counting_trace
+    try:
+        yield calls
+    finally:
+        R._bounce_step, R._trace = step, trace
+
+
+def check_graph_cell(what, scene, cfg, dev, smi, need, none=(), n_primary=0,
+                     want_profile=False):
+    """One render cell through `SceneRenderer`'s frame graph (the captured
+    pieces assembled into one CUDA graph with its loops on the device,
+    `renderer.plan`) against the eager frame of the same config rendered
+    with `unroll="static"`, which stays eager: one graph launch and no host
+    sync per frame, bit-equal images, the same launches per kernel and the
+    same bounce steps per chunk, two launches bit-equal, the condition
+    kernels launched once per chunk (`loop_reset`, `chunk_advance`) and once
+    per bounce step (`bounce_condition`). Both are timed in turns (graph,
+    eager, eager, graph; host clock around synchronised frames); the
+    capture's cost (ms, assembly ms, memory the card reserved) and each
+    piece's node types are printed. A block the allocator cached before the
+    capture must still be reserved after it. With `want_profile` one more
+    graph frame is traced (`profile_call`). Returns (graph renderer, its
+    frame, its launches per kernel, its condition kernels' launches, the
+    traced frame's device kernels or None)."""
     addr = cached_block(dev)
     graph = SceneRenderer(scene, cfg, dev)
     require_still_reserved(addr, what)
     plan = graph.plan
     eager = SceneRenderer(scene, dataclasses.replace(cfg, unroll="static"), dev)
-    if plan is None or plan.graphs != 3 or eager.plan is not None:
-        raise AssertionError(f"{what}: expected a captured frame of 3 graphs beside "
-                             "an eager one")
+    if plan is None or plan.graphs != 1 or eager.plan is not None:
+        raise AssertionError(f"{what}: expected one frame graph beside an eager frame")
     runs = []
-    for r in (graph, eager, eager, graph):
+    for i, r in enumerate((graph, eager, eager, graph)):
         ck.reset_launch_counts()
-        img, ms = wall_ms(r.render_device)
-        runs.append((img, ms, dict(ck.LAUNCHES)))
-    (img, tg1, counts), (eimg, te1, ecounts), (_, te2, _), (img2, tg2, counts2) = runs
+        frame_graph.reset_launch_counts()
+        with eager_steps() if i == 1 else contextlib.nullcontext() as counted:
+            img, ms = wall_ms(r.render_device)
+        runs.append((img, ms, dict(ck.LAUNCHES), dict(frame_graph.LAUNCHES)))
+        if i == 1:
+            steps_eager = tuple(counted)
+    ((img, tg1, counts, loops), (eimg, te1, ecounts, _), (_, te2, _, _),
+     (img2, tg2, counts2, loops2)) = runs
+    f = plan.last_frame
     for name in need:
         if counts[name] <= 0:
             raise AssertionError(f"{what}: the graph frame never launched {name}")
@@ -747,29 +797,261 @@ def check_graph_cell(what, scene, cfg, dev, smi, need, none=(), n_primary=0):
     if counts != ecounts or counts2 != counts:
         raise AssertionError(f"{what}: launches of the graph frame {counts} (again "
                              f"{counts2}), of the eager frame {ecounts}")
+    if (f.launches, f.syncs) != (1, 0):
+        raise AssertionError(f"{what}: a frame made {f.launches} graph launches and "
+                             f"{f.syncs} host syncs (as counted), expected 1 and 0")
+    if f.steps != steps_eager:
+        raise AssertionError(f"{what}: steps per chunk {f.steps}, the eager loop's "
+                             f"{steps_eager}")
+    want_loops = {"loop_reset": plan.n_chunks, "bounce_condition": sum(f.steps),
+                  "chunk_advance": plan.n_chunks}
+    if loops != want_loops or loops2 != want_loops:
+        raise AssertionError(f"{what}: condition kernels launched {loops} (again "
+                             f"{loops2}), expected {want_loops}")
     if not torch.equal(img, eimg):
         raise AssertionError(f"{what}: the graph frame is not bit-equal to the eager "
                              f"frame ({int((img != eimg).any(-1).sum())} pixels differ)")
     if not torch.equal(img2, img):
-        raise AssertionError(f"{what}: two replays of the frame differ")
+        raise AssertionError(f"{what}: two launches of the frame differ")
     check_image(img, graph.width, graph.height)
-    f = plan.last_frame
     warm = {k: n for k, n in plan.warmup_launches.items() if n}
     ms_g, ms_e = (tg1 + tg2) / 2, (te1 + te2) / 2
+    # the device's own time for the frame program: two launches back to back
+    # between two events (node gaps inside the graph included)
+    stream = torch.cuda.current_stream()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(2):
+        plan.graph.launch(stream)
+    stop.record()
+    torch.cuda.synchronize()
+    ms_dev = start.elapsed_time(stop) / 2
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     rate = f", {n_primary / ms_g * 1e3 / 1e6:.3f} M primary rays/s" if n_primary else ""
     say("render", f"{what} ({scene.n_triangles} tris): graph frame bit-equal to the "
-        f"eager frame (unroll=static) and to its own second replay; launches per frame "
-        f"{counts} in both; ms/frame in turns graph {tg1:.3f}, eager {te1:.3f}, "
-        f"{te2:.3f}, graph {tg2:.3f}: graph {ms_g:.3f}, eager {ms_e:.3f}, eager/graph "
-        f"{ms_e / ms_g:.2f}x{rate}; {plan.graphs} graphs captured in "
-        f"{plan.capture_ms:.1f} ms (warm-up included; launches of the warm-up "
-        f"{warm}), the card reserving "
-        f"{plan.held_bytes / 2**20:.1f} MiB for them and their buffers, a block cached "
-        f"before still reserved; per frame "
-        f"{f.replays} replays and {f.syncs} syncs, {plan.n_chunks} chunks of "
-        f"{plan.frame.chunk} rays taking {min(f.steps)}-{max(f.steps)} steps ({sum(f.steps)} "
-        f"in all); {smi}")
-    return graph, img, counts, ms_g, ms_e
+        f"eager frame (unroll=static) and to its own second launch; launches per frame "
+        f"{counts} in both, condition kernels {loops}; ms/frame in turns graph "
+        f"{tg1:.3f}, eager {te1:.3f}, {te2:.3f}, graph {tg2:.3f}: graph {ms_g:.3f}, "
+        f"eager {ms_e:.3f}, eager/graph {ms_e / ms_g:.2f}x{rate}; the frame graph "
+        f"alone on the device {ms_dev:.3f} ms = {100 * ms_dev / ms_g:.1f}% of the "
+        f"graph frame (SM clock, its maximum, power draw just after: {clocks}); "
+        f"captured and "
+        f"assembled in {plan.capture_ms:.1f} ms (assembly {plan.assembly_ms:.1f} ms; "
+        f"launches of the warm-up {warm}), the card reserving "
+        f"{plan.held_bytes / 2**20:.1f} MiB for the pieces and their buffers, a block "
+        f"cached before still reserved; per frame {f.launches} graph launch and "
+        f"{f.syncs} host syncs, {plan.n_chunks} chunks of {plan.frame.chunk} rays "
+        f"taking {min(f.steps)}-{max(f.steps)} steps ({sum(f.steps)} in all), equal to "
+        f"the eager loop's per chunk; {smi}")
+    say("render", f"{what}: node types per piece " + "; ".join(
+        f"{name} {nodes}" for name, nodes in plan.piece_nodes.items()))
+    traced = (profile_call(graph.render_device, f"{what}, graph frame", ms_g,
+                           conditional=True)
+              if want_profile else None)
+    return graph, img, counts, loops, traced
+
+
+# the frame graph's condition kernels (csrc/frame_loop.cu): no TPU kernel;
+# what each stands for in the JAX package's frame program
+LOOP_SOURCE = "raytracing_gpu_tpu_torch/csrc/frame_loop.cu"
+LOOP_REPLACES = {
+    "loop_reset": "raytracing_gpu_tpu/render.py:136",        # while_loop entry
+    "bounce_condition": "raytracing_gpu_tpu/render.py:136",  # its cond (:198 GPU)
+    "chunk_advance": "raytracing_gpu_tpu/render.py:320"}     # lax.map's counter
+# bytes each kernel must move: the state it reads and writes (its launch
+# counter among it) and the 4-byte condition it sets
+LOOP_BYTES = {"loop_reset": 4 + 4 + 4, "bounce_condition": 8 + 4 + 4 + 4 + 4 + 1 + 4,
+              "chunk_advance": 8 + 8 + 4 + 4 + 4}
+# (chunks, depth cap, first step, share of steps whose flag says "alive")
+LOOP_CASES = ((1, 1, True, 1.0), (3, 0, True, 1.0), (5, 6, False, 0.9),
+              (36, 11, True, 0.8), (20, 29, True, 0.95), (4, 7, True, 1.0))
+LOOP_ITERS = 1000
+# what one iteration timed for each kernel's `ms` holds (each piece one
+# captured one-element fill)
+LOOP_BODY = {"bounce_condition": "the bounce loop's: the step piece and the kernel",
+             "loop_reset": "the chunk loop's: rays, loop_reset, a bounce loop kept "
+                           "shut, fold and chunk_advance (shared with chunk_advance)",
+             "chunk_advance": "the chunk loop's: rays, loop_reset, a bounce loop kept "
+                              "shut, fold and chunk_advance (shared with loop_reset)"}
+
+
+def expected_steps(alive, first_step: bool, n_bounces: int) -> list:
+    """The eager loop's steps per chunk when step k of chunk c leaves a ray
+    alive exactly where alive[c, k]."""
+    if not (first_step and n_bounces > 0):
+        return [0] * alive.shape[0]
+    out = []
+    for row in alive:
+        dead = np.flatnonzero(~row[:n_bounces - 1])
+        out.append(int(dead[0]) + 1 if dead.size else n_bounces)
+    return out
+
+
+def capture_pieces(fns: dict, dev) -> dict:
+    """Each of `fns` called once, then captured into a CUDA graph whose
+    `cudaGraph_t` is kept (as a `FramePlan` captures its pieces)."""
+    side = torch.cuda.Stream(dev)
+    graphs = {}
+    for name, fn in fns.items():
+        fn()
+        graphs[name] = torch.cuda.CUDAGraph(keep_graph=True)
+        frame_graph.capture_graph(graphs[name], fn, side)
+    return graphs
+
+
+def assemble(state, graphs, n_chunks, n_bounces, first_step):
+    return frame_graph.FrameGraph(state, {n: g.raw_cuda_graph() for n, g in graphs.items()},
+                                  n_chunks, n_bounces, first_step)
+
+
+class LoopProbe:
+    """The frame's PROGRAM over pieces that drive the loops from a seeded
+    table: "rays" and "fold" count their runs per chunk, "step" writes
+    alive[chunk, step] into the flag. Captured like a `FramePlan`'s pieces
+    and assembled by `frame_graph.FrameGraph`, or run by the interpreter
+    over the same tensors with the kernels' twins."""
+
+    def __init__(self, dev, alive, n_bounces, first_step):
+        self.n_chunks, self.width = alive.shape
+        self.n_bounces, self.first_step = n_bounces, first_step
+        self.state = frame_graph.LoopState.zeros(self.n_chunks, dev)
+        self.alive = torch.from_numpy(alive.reshape(-1).copy()).to(dev)
+        self.rays = torch.zeros((self.n_chunks,), dtype=torch.int32, device=dev)
+        self.folds = torch.zeros_like(self.rays)
+        self.one = torch.ones((1,), dtype=torch.int32, device=dev)
+        self.fns = {"rays": lambda: self.rays.index_add_(0, self.ci(), self.one),
+                    "step": self.step,
+                    "fold": lambda: self.folds.index_add_(0, self.ci(), self.one)}
+        self.graphs = capture_pieces(self.fns, dev)
+        self.frame = assemble(self.state, self.graphs, self.n_chunks, n_bounces, first_step)
+
+    def ci(self):
+        return self.state.chunk_index.reshape(1)
+
+    def step(self):
+        k = self.state.steps.index_select(0, self.ci()).long()
+        self.state.flag.copy_(self.alive.index_select(0, self.ci() * self.width + k))
+
+    def clear(self):
+        for t in (self.rays, self.folds, self.state.counts, self.state.chunk_index,
+                  self.state.flag):
+            t.zero_()
+
+    def results(self) -> dict:
+        torch.cuda.synchronize()
+        steps, loops = self.state.read()
+        return {"steps": list(steps), "loops": loops, "rays": self.rays.tolist(),
+                "folds": self.folds.tolist(), "chunk_index": int(self.state.chunk_index)}
+
+    def launch(self) -> dict:
+        self.clear()
+        self.frame.launch(torch.cuda.current_stream())
+        return self.results()
+
+    def interpret(self) -> dict:
+        self.clear()
+        frame_graph.interpret(frame_graph.PROGRAM, self.state, self.fns, self.n_chunks,
+                              self.n_bounces, self.first_step)
+        return self.results()
+
+
+def loop_iteration_ms(dev, n_chunks, n_bounces, reps: int = 20) -> float:
+    """CUDA-event milliseconds of one launch of the frame's PROGRAM whose
+    pieces are each one captured one-element fill (the step's keeps the
+    flag "alive"): mean of `reps` launches."""
+    state = frame_graph.LoopState.zeros(n_chunks, dev)
+    spare = torch.zeros((1,), dtype=torch.bool, device=dev)
+    graphs = capture_pieces({"rays": lambda: spare.fill_(True),
+                             "step": lambda: state.flag.fill_(True),
+                             "fold": lambda: spare.fill_(True)}, dev)
+    frame = assemble(state, graphs, n_chunks, n_bounces, True)
+    stream = torch.cuda.current_stream()
+    frame.launch(stream)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        frame.launch(stream)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def check_frame_loop(dev) -> dict:
+    """The three condition kernels of the frame graph against their plain
+    twins: for each of LOOP_CASES a seeded table of alive flags drives one
+    standalone frame graph (the frame's PROGRAM, launched twice) and the
+    interpreter over the same tensors; steps per chunk, the condition
+    kernels' launches as they counted them, runs of "rays" and "fold" per
+    chunk and the final chunk index must be equal, and equal to what the
+    eager loop would do. The sync counter a frame is held to must count an
+    `.item()` and nothing in an add. Then the cost of one WHILE iteration,
+    from the frame program with one-kernel pieces: LOOP_ITERS + 1 iterations
+    against 1, of the bounce loop and of the chunk loop. Returns {kernel:
+    result dict}."""
+    system, runtime = frame_graph.cuda_versions()
+    nvcc = next(line for line in subprocess.run(
+        [build.find_nvcc(), "--version"], capture_output=True,
+        text=True).stdout.splitlines() if "release" in line)
+    say("loop", f"CUDA {system} on the system, the kernels' runtime {runtime}, {nvcc} "
+        "(WHILE conditional nodes need 12030)")
+    rng = np.random.default_rng(20261017)
+    worst, trips = 0, 0
+    for n_chunks, n_bounces, first_step, p in LOOP_CASES:
+        alive = rng.random((n_chunks, max(n_bounces, 1))) < p
+        probe = LoopProbe(dev, alive, n_bounces, first_step)
+        got, again, twin = probe.launch(), probe.launch(), probe.interpret()
+        want = expected_steps(alive, first_step, n_bounces)
+        ran = [1] * n_chunks
+        loops = {"loop_reset": n_chunks, "bounce_condition": sum(want),
+                 "chunk_advance": n_chunks}
+        if not (got == again == twin and got["steps"] == want and got["loops"] == loops
+                and got["rays"] == ran and got["folds"] == ran
+                and got["chunk_index"] == n_chunks):
+            raise AssertionError(f"frame loop, {n_chunks} chunks, cap {n_bounces}, "
+                                 f"first step {first_step}: graph {got}, again {again}, "
+                                 f"twins {twin}, eager loop's steps {want}")
+        worst = max(worst, max(abs(a - b) for a, b in zip(got["steps"], twin["steps"])))
+        trips += sum(want)
+    say("loop", f"{len(LOOP_CASES)} seeded frame programs (1-36 chunks, caps 0-29, "
+        f"{trips} bounce steps): the frame graph's steps per chunk, condition kernel "
+        "launches (counted on the device), runs of rays and fold and final chunk "
+        "index equal to the twins' and to the eager loop's, twice")
+    x = torch.ones((1,), device=dev)
+    with frame_graph.counted_syncs() as in_add:
+        x.add_(1.0)
+    with frame_graph.counted_syncs() as in_item:
+        x.sum().item()
+    if in_add.n != 0 or in_item.n < 1:
+        raise AssertionError(f"the sync counter counted {in_add.n} syncs in an add and "
+                             f"{in_item.n} in an .item()")
+    say("loop", f"the sync counter: {in_add.n} syncs in an add, {in_item.n} in an .item()")
+
+    n = LOOP_ITERS
+    bounce_ms = (loop_iteration_ms(dev, 1, n + 1) - loop_iteration_ms(dev, 1, 1)) / n
+    chunk_ms = (loop_iteration_ms(dev, n + 1, 0) - loop_iteration_ms(dev, 1, 0)) / n
+    ms = {"bounce_condition": bounce_ms, "loop_reset": chunk_ms, "chunk_advance": chunk_ms}
+    # the twins, timed on the card over the same kind of state
+    state = frame_graph.LoopState.zeros(4, dev)
+    cond = torch.zeros((1,), dtype=torch.bool, device=dev)
+    plain = {"loop_reset": cuda_ms(lambda: frame_graph.loop_reset(cond, state, True, 6),
+                                   200),
+             "bounce_condition": cuda_ms(
+                 lambda: frame_graph.bounce_condition(cond, state, 1 << 30), 200),
+             "chunk_advance": cuda_ms(
+                 lambda: frame_graph.chunk_advance(cond, state, 1 << 30), 200)}
+    results = {}
+    for name in frame_graph.KERNELS:
+        b, by = bound(0, LOOP_BYTES[name])
+        results[name] = {"max_abs_err": float(worst), "ms": ms[name], "plain_ms": plain[name],
+                         "bound_ms": b, "bound_by": by, "library_ms": None}
+    say("loop", f"one WHILE iteration ({n + 1} iterations against 1, each piece one "
+        f"captured one-element fill): of the bounce loop (the step, bounce_condition) "
+        f"{bounce_ms * 1e3:.3f} us; of the chunk loop (rays, loop_reset, a bounce loop "
+        f"kept shut, fold, chunk_advance) {chunk_ms * 1e3:.3f} us; twins "
+        + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in plain.items()))
+    return results
 
 
 OWN_KERNELS = ("fetch_rows_kernel", "sweep_list_kernel") + tuple(
@@ -783,24 +1065,60 @@ def own_kernel(name: str):
     if "sweep_kernel<" in name:
         digits = [c for c in name.split("sweep_kernel<")[1].split(">")[0] if c.isdigit()]
         return OWN_KERNELS[2 + int(digits[-1])] if digits else None
-    return next((t for t in OWN_KERNELS[:2] if t in name), None)
+    names = OWN_KERNELS[:2] + tuple(f"{k}_kernel" for k in frame_graph.KERNELS)
+    return next((t for t in names if t in name), None)
 
 
-def profile_call(fn, what) -> int:
+SWEEP_KIND = {"nearest_hit": "NEAREST_HIT", "nearest_dist": "NEAREST_DIST",
+              "any_hit": "ANY_HIT", "nearest_hit_matmul": "MATMUL_HIT",
+              "nearest_dist_matmul": "MATMUL_DIST"}
+
+
+def expected_kernels(counted) -> dict:
+    """{the port's device kernel: launches} that launch counts (the
+    wrappers' and the condition kernels', by name) say ran."""
+    want = {f"{k}_kernel": counted[k] for k in frame_graph.KERNELS}
+    want["fetch_rows_kernel"] = counted["fetch_rows"]
+    for name, kind in SWEEP_KIND.items():
+        want[f"sweep_kernel<{kind}>"] = counted[name]
+    return {k: n for k, n in want.items() if n}
+
+
+def profile_call(fn, what, unprofiled_ms=None, conditional=False) -> int:
     """Trace one warm call (a frame, a training step): kernel launches
-    (returned), the device's busy share (`utils.profiling.profile_call`) and
-    the time in the port's own kernels."""
+    (returned), the device's busy share (`utils.profiling.profile_call`;
+    with `unprofiled_ms`, also the busy time over that unprofiled call's
+    time) and the time in the port's own kernels. The port's kernels the
+    trace names must be those the launch counters counted in the traced
+    call, as often; in a frame graph (`conditional`: kernels in WHILE
+    bodies) the trace names them wrongly in some cells (PERF.md section 7),
+    so there a disagreement is printed and their times are left out."""
+    before = {**ck.LAUNCHES, **frame_graph.LAUNCHES}
     prof = profiling.profile_call(fn)
+    expect = expected_kernels({k: n - before[k] for k, n in
+                               {**ck.LAUNCHES, **frame_graph.LAUNCHES}.items()})
     own = {}
     for k in prof.kernels:
         tag = own_kernel(k.name)
         if tag is not None:
             n, us = own.get(tag, (0, 0.0))
             own[tag] = (n + 1, us + k.time_range.elapsed_us())
+    seen = {t: n for t, (n, _) in own.items() if t != "sweep_list_kernel"}
+    if seen != expect:
+        if not conditional:
+            raise AssertionError(f"{what}: the trace names the port's kernels {seen} "
+                                 f"times, the launch counters say {expect}")
+        say("profile", f"{what}: the trace names the port's kernels {seen} times, the "
+            f"launch counters say {expect}: names in WHILE bodies are wrong here, so "
+            "no per-kernel times")
+        own = {}
+    unprofiled = ("" if unprofiled_ms is None else f", {100 * prof.busy_ms / unprofiled_ms:.1f}% "
+                  f"of the unprofiled {unprofiled_ms:.3f} ms")
     say("profile", f"{what}: profiled call {prof.wall_ms:.1f} ms, {len(prof.kernels)} "
         f"device kernels and copies, device busy {prof.busy_ms:.1f} ms = "
-        f"{100 * prof.busy_share:.1f}% of it; own kernels "
-        + ", ".join(f"{t} {us / 1e3:.2f} ms in {n}" for t, (n, us) in sorted(own.items())))
+        f"{100 * prof.busy_share:.1f}% of it{unprofiled}; own kernels "
+        + (", ".join(f"{t} {us / 1e3:.2f} ms in {n}" for t, (n, us) in sorted(own.items()))
+           or "not timed"))
     return len(prof.kernels)
 
 
@@ -1459,8 +1777,15 @@ def check_entry(scene, cfg, renderer, ref_img, dev, kind, smi):
         setup, setup_ms = wall_ms(lambda: SceneRenderer(nat, cfg, dev))
         ppm = os.path.join(tmp, "out.ppm")
         ck.reset_launch_counts()
+        frame_graph.reset_launch_counts()
         _, entry_ms = wall_ms(lambda: render(path, ppm, cfg, device=dev))
-        counts = dict(ck.LAUNCHES)
+        counts, loops = dict(ck.LAUNCHES), dict(frame_graph.LAUNCHES)
+        f = renderer.plan.last_frame
+        want_loops = {"loop_reset": renderer.plan.n_chunks, "bounce_condition": sum(f.steps),
+                      "chunk_advance": renderer.plan.n_chunks}
+        if loops != want_loops:
+            raise AssertionError(f"render(): condition kernels launched {loops}, one "
+                                 f"frame graph launches {want_loops}")
         frame = ref_img.cpu().numpy()
         if open(ppm, "rb").read() != ppm_bytes(frame):
             raise AssertionError("render(): the PPM differs from ppm_bytes of "
@@ -1485,9 +1810,10 @@ def check_entry(scene, cfg, renderer, ref_img, dev, kind, smi):
         png = open(os.path.join(tmp, "never.png"), "rb").read()
         frame_ms = float(np.median(time_frames(renderer, 1)[1]))
         say("entry", f"render(.svati -> .ppm), spheres 512x512, cuda: byte-equal to "
-            f"ppm_bytes of SceneRenderer's frame; launches {counts}; {entry_ms:.1f} ms "
+            f"ppm_bytes of SceneRenderer's frame; launches {counts}, condition kernels "
+            f"{loops} (one frame graph launch); {entry_ms:.1f} ms "
             f"for the call (SceneRenderer set-up alone {setup_ms:.1f} ms, of which the "
-            f"frame's warm-up and capture {setup.plan.capture_ms:.1f} ms; one graph "
+            f"frame's warm-up, capture and assembly {setup.plan.capture_ms:.1f} ms; one graph "
             f"frame beside it {frame_ms:.1f} ms); writers native / Python: PPM "
             f"{times['ppm', 'force']:.1f} / {times['ppm', 'never']:.1f} ms, PNG "
             f"{times['png', 'force']:.1f} / {times['png', 'never']:.1f} ms "
@@ -1750,10 +2076,12 @@ def check_all(dev, smi, kind, count, want_profile, ranks) -> int:
     ck.build_kernels()
     say("build", f"{path} in {time.perf_counter() - t0:.1f} s")
     for line in (path.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "bytes smem" in line or "Compiling entry" in line:
+        if ("registers" in line or "bytes smem" in line or "Compiling entry" in line
+                or "side by side" in line):
             say("build", line.strip())
 
     results = check_kernels(dev)
+    loop_results = check_frame_loop(dev)
     if want_profile:
         profile_fetch_wrapper(dev)
     launches = {}
@@ -1765,13 +2093,10 @@ def check_all(dev, smi, kind, count, want_profile, ranks) -> int:
 
     # ---- CPU mode, backend "cuda": the sphere scene at 512x512, its frame
     # captured and replayed, held against the eager frame
-    renderer, cuda_img, launches["cpu_mode"], _, _ = check_graph_cell(
-        f"CPU mode, spheres 512x512, cuda (depth {frame_depth(spheres512, cfg)})",
-        spheres512, cfg, dev, smi, k123, n_primary=cpu_rays)
     traced = {}
-    if want_profile:
-        traced["cuda"] = profile_call(renderer.render_device,
-                                      "CPU mode, spheres 512x512, cuda, graph frame")
+    renderer, cuda_img, launches["cpu_mode"], loop_launches, traced["cuda"] = check_graph_cell(
+        f"CPU mode, spheres 512x512, cuda (depth {frame_depth(spheres512, cfg)})",
+        spheres512, cfg, dev, smi, k123, n_primary=cpu_rays, want_profile=want_profile)
 
     # ---- the file entry on the same scene and config: .svati, the native
     # parser and writers, render(), the CLI with --profile, inspect
@@ -1809,10 +2134,12 @@ def check_all(dev, smi, kind, count, want_profile, ranks) -> int:
     # the front-to-back sweep (375 triangle tiles > 2 * 8)
     grid512 = make_sphere_grid_scene(512, 512)
     _, grid_img, grid_counts, _, _ = check_graph_cell(
-        "CPU mode, grid 512x512, cuda", grid512, cfg, dev, smi, k123, n_primary=cpu_rays)
+        "CPU mode, grid 512x512, cuda", grid512, cfg, dev, smi, k123, n_primary=cpu_rays,
+        want_profile=want_profile)
     _, f2b_img, launches["front_to_back"], _, _ = check_graph_cell(
         "CPU mode, grid 512x512, cuda, f2b_tiles=8", grid512,
-        RenderConfig(backend="cuda", f2b_tiles=8), dev, smi, k123, n_primary=cpu_rays)
+        RenderConfig(backend="cuda", f2b_tiles=8), dev, smi, k123, n_primary=cpu_rays,
+        want_profile=want_profile)
     if launches["front_to_back"]["nearest_hit"] != 2 * grid_counts["nearest_hit"]:
         raise AssertionError("front-to-back did not double the nearest_hit launches: "
                              f"{launches['front_to_back']} against {grid_counts}")
@@ -1826,20 +2153,16 @@ def check_all(dev, smi, kind, count, want_profile, ranks) -> int:
     gpu_rays = 512 * 512 * ALIASING ** 2
     gcfg = RenderConfig(mode="gpu", backend="cuda", aliasing=ALIASING, max_bounce=10)
     any_cfg = dataclasses.replace(gcfg, any_hit_min_tris=0)
-    any_renderer, any_img, launches["gpu_mode"], _, _ = check_graph_cell(
+    _, any_img, launches["gpu_mode"], _, traced["GPU mode, any-hit"] = check_graph_cell(
         f"GPU mode, spheres 512x512 x{ALIASING}, cuda, any-hit", spheres512, any_cfg,
         dev, smi, ("nearest_hit", "fetch_rows", "any_hit"), none=("nearest_dist",),
-        n_primary=gpu_rays)
+        n_primary=gpu_rays, want_profile=want_profile)
     dist_img, _ = counted_frame(
         SceneRenderer(spheres512, gcfg, dev),
         f"GPU mode, spheres 512x512 x{ALIASING}, cuda, distance sweep, graph frame",
         ("nearest_hit", "fetch_rows", "nearest_dist"), none=("any_hit",))
     require_same_image(any_img, dist_img,
                        "GPU mode: any-hit frame against the distance-sweep frame")
-    if want_profile:
-        traced["GPU mode, any-hit"] = profile_call(
-            any_renderer.render_device,
-            f"GPU mode, spheres 512x512 x{ALIASING}, any-hit, graph frame")
 
     small = make_sphere_scene(64, 64, **SPHERES)
     small_img = SceneRenderer(small, any_cfg, dev).render_device()
@@ -1858,10 +2181,11 @@ def check_all(dev, smi, kind, count, want_profile, ranks) -> int:
 
     # ---- backend "cuda_matmul": the sphere scene at 512x512 in CPU mode
     mm_cfg = RenderConfig(backend="cuda_matmul")
-    mm, mm_img, launches["matmul"], _, _ = check_graph_cell(
+    mm, mm_img, launches["matmul"], _, traced["cuda_matmul"] = check_graph_cell(
         "CPU mode, spheres 512x512, cuda_matmul", spheres512, mm_cfg, dev, smi,
         ("nearest_hit_matmul", "nearest_dist_matmul", "fetch_rows"),
-        none=("nearest_hit", "nearest_dist", "any_hit"), n_primary=cpu_rays)
+        none=("nearest_hit", "nearest_dist", "any_hit"), n_primary=cpu_rays,
+        want_profile=want_profile)
     d = assert_images_close(u8(mm_img), u8(cuda_img), tol=1,
                             context="cuda_matmul against cuda, spheres 512x512")
     say("render", f"cuda_matmul against cuda, spheres 512x512: {d}")
@@ -1876,8 +2200,6 @@ def check_all(dev, smi, kind, count, want_profile, ranks) -> int:
     say("render", "cuda_matmul frame / cuda frame beside it (graph frames): "
         f"{mm_frame_ms / cuda_again_ms:.3f}")
     if want_profile:
-        traced["cuda_matmul"] = profile_call(
-            mm.render_device, "CPU mode, spheres 512x512, cuda_matmul, graph frame")
         say("profile", "device kernels and copies per graph frame, spheres 512x512: "
             + ", ".join(f"{k} {n}" for k, n in traced.items())
             + f"; cuda_matmul - cuda = {traced['cuda_matmul'] - traced['cuda']}")
@@ -1906,6 +2228,15 @@ def check_all(dev, smi, kind, count, want_profile, ranks) -> int:
                      "adjoint is a plain scatter-add outside any Pallas kernel",
                 grid_4096=results["grid_4096"][name]["backward"])
         kernels.append(entry)
+    for name in frame_graph.KERNELS:  # the port's own: no TPU kernel
+        kernels.append({"name": name, "route": "cuda", "source": LOOP_SOURCE,
+                        "replaces": LOOP_REPLACES[name],
+                        "launches": loop_launches[name], **loop_results[name],
+                        "path": "cpu_mode",
+                        "note": "no TPU kernel: the frame graph's loop condition "
+                                "(lax.while_loop / lax.map on the TPU); ms is one "
+                                "iteration of the WHILE loop that holds the kernel, "
+                                + LOOP_BODY[name]})
     print(json.dumps({"kernels": kernels}))
     say("done", f"total {time.perf_counter() - T_START:.1f} s")
     print(smi)

@@ -58,8 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="bounce-loop strategy: static (or auto with "
                    "quantize=smooth) renders eagerly and lets remat "
-                   "checkpoint each bounce step; otherwise the GPU replays "
-                   "a frame captured once into CUDA graphs")
+                   "checkpoint each bounce step; otherwise the GPU launches "
+                   "the frame as one CUDA graph captured once")
     p.add_argument("--tiles", type=int, default=0,
                    help="shard rays over N processes (0 = one process); "
                    "launch the processes with torchrun")

@@ -643,9 +643,9 @@ _SWEEP_OUT = {"nearest_hit": (torch.int64, 0), "nearest_dist": (torch.float32, 0
 def _kernels() -> dict:
     """The kernels' entry points by wrapper name, each bound once to its
     ctypes prototype; the library is built from csrc/ at first use."""
-    from raytracing_gpu_tpu_torch.csrc.build import library_path
+    from raytracing_gpu_tpu_torch.csrc.build import load_library
 
-    lib = ctypes.CDLL(str(library_path()))
+    lib = load_library()
     sweep = ctypes.CFUNCTYPE(_I, _P, _P, _I, _P, _P, _P, _P, _I, _F, _F, _P, _P, _P)
     fns = {name: sweep((f"rgt_{name}", lib)) for name in _SWEEP_OUT}
     fns["fetch_rows"] = ctypes.CFUNCTYPE(_I, _P, _I, _I, _P, _I, _I, _P, _P)(

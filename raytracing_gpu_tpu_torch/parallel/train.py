@@ -118,9 +118,12 @@ def insert_params(scene: Scene, p: dict) -> Scene:
     )
 
 
-def params_from_numpy(arrays: dict, device="cpu") -> dict:
+def params_from_numpy(arrays: dict, device="cuda") -> dict:
     """The port's params from a dict of arrays under the same 13 names (the
-    JAX package's `extract_params` through `np.asarray`), as float32."""
+    JAX package's `extract_params` through `np.asarray`), as float32 on
+    `device` (`"cuda"` raises without a card; pass `device="cpu"` for the
+    host)."""
+    device = resolve_device(device)
     return {k: torch.from_numpy(np.array(arrays[k], dtype=np.float32)).to(device)
             for k in PARAM_KEYS}
 

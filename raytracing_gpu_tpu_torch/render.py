@@ -19,8 +19,9 @@ stop once no ray is alive; dead rays are parked (origin 3e29, direction 0) so
 tile culling drops them. A `FrameLayout` (`cpu_frame`, `gpu_frame`) says how
 a frame's rays are made and its image assembled; the eager chunk loop
 (`_trace_image`) and the captured frame (`frame_plan`, a
-`utils.frame_graph.FramePlan`: CUDA graphs of one chunk's rays, one bounce
-step and the fold, replayed chunk by chunk) both follow it, and
+`utils.frame_graph.FramePlan`: one chunk's rays, one bounce step and the
+fold captured once and assembled into one CUDA graph whose loops run on
+the device) both follow it, and
 `SceneRenderer` takes the captured frame on the card.
 
 The loops are differentiable as they stand (`render_image`, and
@@ -391,8 +392,8 @@ def _render_frame(scene: Scene, cfg: RenderConfig, depth: int | None, pack=None)
 def frame_plan(scene: Scene, cfg: RenderConfig, depth: int | None,
                pack=None) -> FramePlan:
     """The frame `cfg.mode` names as a `FramePlan` over `_bounce_step`, on
-    the scene's device: captured into CUDA graphs on the card, its pieces
-    called as they stand on the CPU."""
+    the scene's device: captured and assembled into one CUDA graph on the
+    card, its program interpreted over the same pieces on the CPU."""
     frame = frame_layout(scene, cfg)
     n_bounces = cfg.max_bounce + 1 if frame.gpu_semantics else depth
     step = functools.partial(_bounce_step, frame.scene, cfg, ColorOps(cfg.quantize),
@@ -408,17 +409,17 @@ class SceneRenderer:
     kernel pack (clustering, packing, winner table) once. On a CUDA device
     with `cfg.resolve_unroll()` False (the JAX package's compiled while-loop
     strategy: every config but `unroll="static"` and `quantize="smooth"`
-    under "auto") it also captures the frame into CUDA graphs once
-    (`self.plan`, a `utils.frame_graph.FramePlan`), as the JAX
-    `SceneRenderer` compiles its frame once, and `render()` replays them. A
-    capture that fails raises, naming the piece: nothing renders eagerly
-    unasked. Elsewhere (`device="cpu"`, the unrolled strategy) `self.plan`
+    under "auto") it also captures the frame once into one CUDA graph with
+    its loops on the device (`self.plan`, a `utils.frame_graph.FramePlan`),
+    as the JAX `SceneRenderer` compiles its frame once, and `render()`
+    launches it. A capture or assembly that fails raises, naming the step:
+    nothing renders eagerly unasked. Elsewhere (`device="cpu"`, the unrolled strategy) `self.plan`
     is None and `render()` traces eagerly through the pipeline `cfg.mode`
     names. `depth` is None in GPU mode, which caps bounces by
     `cfg.max_bounce`. `device="cuda"` raises when CUDA is not available:
     nothing falls back to the CPU unless `device="cpu"` is asked for.
 
-    The graphs read `self.scene`'s and `self.pack`'s tensors where they were
+    The frame graph reads `self.scene`'s and `self.pack`'s tensors where they were
     at capture: reassigning them afterwards is not seen (the JAX renderer's
     compiled frame closes over its scene the same way).
     """

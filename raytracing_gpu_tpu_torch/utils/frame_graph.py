@@ -1,49 +1,64 @@
-"""A frame captured once and replayed: the port's counterpart of the JAX
-package's compiled frame program.
+"""A frame captured once and launched as one CUDA graph: the port's
+counterpart of the JAX package's compiled frame program.
 
 The JAX `SceneRenderer` compiles its frame once (`aot_compiled` or plain
 `jax.jit` of `render._render_cpu_mode` / `render._render_gpu_mode`) and then
 only dispatches it: `lax.map` over chunk indices, each chunk's rays made on
 the device from `ci * chunk + arange`, and one `lax.while_loop` per chunk
 whose condition `jnp.any(alive & ...)` is evaluated on the device. On the
-card a `FramePlan` does the same with CUDA graphs. It captures three pieces
-once, over static buffers of one chunk:
+card a `FramePlan` does the same. It captures three pieces once with
+PyTorch, over static buffers of one chunk:
 
 - "rays": the chunk's ray ids from a device scalar (the chunk index, never a
   Python constant), the pipeline's id map and pixel coordinates, the camera
   rays, and the reset of the running state (coefficient, alive, color);
 - "step": one bounce step (`render._bounce_step`), narrowed as the eager
   loop narrows it, its results copied back into the state, and whether any
-  ray is still alive reduced on the device and copied into a pinned host
+  ray is still alive for the next step reduced into a one-element device
   flag;
 - "fold": the chunk's colors (folded into pixels when the frame folds)
   written into the frame's buffer at the chunk's offset.
 
-`render()` then replays "rays", replays "step" until the flag says every
-ray is dead or the depth cap is reached (one stream sync and one byte read
-per bounce: the while loop's condition brought back to the host), replays
-"fold", chunk after chunk, and assembles the image eagerly (the finalize and
-unswizzle, or the box downscale). The chunks and bounces it runs are
+It then assembles them (`csrc/frame_loop.cu`) into one graph that runs
+`PROGRAM`: a WHILE node over the chunks whose body holds "rays", the bounce
+loop (a WHILE node over "step" and the `bounce_condition` kernel) and
+"fold", with the `loop_reset` and `chunk_advance` kernels setting the two
+conditions on the device. `render()` launches that graph once, assembles
+the image eagerly (the finalize and unswizzle, or the box downscale),
+counting the host syncs torch makes meanwhile (there are none), and then
+reads the loop state's counts once: the condition kernels' launches and the
+bounce steps each chunk took, both counted on the device. No host sync
+happens between chunks or bounces. The chunks and bounces it runs are
 exactly the eager loop's, and the image is the eager image bit for bit.
 
-On the CPU nothing is captured: each piece is called as it stands, over the
-same buffers and by the same loop, so the CPU tests run the plan's code.
+On the CPU nothing is captured: `interpret` walks the same `PROGRAM` node
+by node, calling the pieces and the kernels' plain twins (`loop_reset`,
+`bounce_condition`, `chunk_advance`) over the same buffers, so the CPU tests
+run the plan's code and its loop logic.
 
-Launch counts (`ops.cuda_intersect.LAUNCHES`) stay true: the launches a
-piece records while it is captured are taken back out, and each replay adds
-them again. The warm-up before each capture launches for real and counts
+Launch counts stay true: `LAUNCHES` here gets the condition kernels'
+launches as they counted them on the device, and `ops.cuda_intersect.
+LAUNCHES` the launches each piece recorded at its capture times the number
+of times the frame ran it, which the kernel after it in the program counted
+(`loop_reset` for "rays", `bounce_condition` for "step", `chunk_advance`
+for "fold"). The warm-up before each capture launches for real and counts
 (`warmup_launches`).
 
-A capture that fails raises, naming the piece; nothing falls back to eager
-rendering. The graphs read the scene's tensors and the kernel pack at the
-addresses they had at capture: like the JAX `SceneRenderer`'s closure over
-its scene, reassigning them afterwards is not seen.
+A capture, an assembly or a launch that fails raises, naming the step;
+nothing falls back to eager rendering or to a loop driven from the host.
+The graph reads the scene's tensors and the kernel pack at the addresses
+they had at capture: like the JAX `SceneRenderer`'s closure over its scene,
+reassigning them afterwards is not seen.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import time
+import types
+import warnings
 from typing import Callable, NamedTuple
 
 import torch
@@ -55,10 +70,63 @@ from raytracing_gpu_tpu_torch.ops.colors import ColorOps
 from raytracing_gpu_tpu_torch.ops.fp import f32
 
 PIECES = ("rays", "step", "fold")
+KERNELS = ("loop_reset", "bounce_condition", "chunk_advance")
+CONDITIONS = ("chunks", "bounces")
+
+# The frame program as plain data, walked by `interpret` on the CPU and, on
+# the card, handed encoded (`encode_program`) to the assembly of the frame
+# graph, which builds this program and refuses any other. A node is
+# ("reset",): chunk index and counts set to 0; ("piece", name): one captured
+# piece; ("kernel", name): a condition kernel (its twin on the CPU); or
+# ("while", condition, body): the body run while the condition holds. The
+# "chunks" condition is n_chunks > 0 at each launch (the graph's default);
+# the "bounces" condition is set by `loop_reset` before each chunk.
+PROGRAM = (
+    ("reset",),
+    ("while", "chunks", (                     # lax.map over chunk indices
+        ("piece", "rays"),
+        ("kernel", "loop_reset"),
+        ("while", "bounces", (                # the chunk's lax.while_loop
+            ("piece", "step"),
+            ("kernel", "bounce_condition"),
+        )),
+        ("piece", "fold"),
+        ("kernel", "chunk_advance"),
+    )),
+)
+
+# opcodes of the encoded program (csrc/frame_loop.cu enum Op)
+OPCODES = {"end": 0, "reset": 1, "piece": 2, "kernel": 3, "while": 4}
+
+# Launches of the condition kernels, by kernel, as the kernels counted them
+# on the device: `FramePlan.render()` adds them once it has read the loop
+# state after a frame (never on the CPU, where their twins run).
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def encode_program(program) -> list[int]:
+    """The program as the flat list of ints `rgt_frame_graph_build` reads:
+    each node its opcode and argument, a WHILE body closed by "end"."""
+    out = []
+    for node in program:
+        kind = node[0]
+        out.append(OPCODES[kind])
+        if kind == "piece":
+            out.append(PIECES.index(node[1]))
+        elif kind == "kernel":
+            out.append(KERNELS.index(node[1]))
+        elif kind == "while":
+            out += [CONDITIONS.index(node[1]), *encode_program(node[2]), OPCODES["end"]]
+    return out
 
 
 def uses_frame_graph(cfg, device) -> bool:
-    """True where `SceneRenderer` renders by replaying a captured frame: on
+    """True where `SceneRenderer` renders by launching a captured frame: on
     a CUDA device, with the bounce loops in the JAX package's compiled
     while-loop strategy (`cfg.resolve_unroll()` False). Elsewhere it renders
     eagerly: on the CPU, and in the unrolled, differentiable strategy."""
@@ -94,12 +162,219 @@ class FrameLayout(NamedTuple):
 
 
 class FrameCounts(NamedTuple):
-    """What one `FramePlan.render()` did: graph replays (calls on the CPU),
-    stream syncs for the alive flag, and bounce steps per chunk."""
+    """What one `FramePlan.render()` did, as counted: launches of the frame
+    graph (`FrameGraph.launches`; 0 on the CPU, which interprets the
+    program), host syncs torch made from the launch to the finished image
+    (`counted_syncs`; None on the CPU), the bounce steps per chunk and
+    {condition kernel: launches}, both counted on the device by the kernels
+    (on the CPU by their twins) and read once, after the frame."""
 
-    replays: int
-    syncs: int
+    launches: int
+    syncs: int | None
     steps: tuple
+    loops: dict
+
+
+class LoopState(NamedTuple):
+    """The loops' state on the device: the chunk being traced (int64
+    scalar), `counts` (int32: the launches of each of KERNELS, then the
+    bounce steps each chunk took, `steps`), and whether any ray is alive
+    for the next step (bool, 1; the step writes it)."""
+
+    chunk_index: torch.Tensor
+    counts: torch.Tensor
+    flag: torch.Tensor
+
+    @classmethod
+    def zeros(cls, n_chunks: int, device) -> "LoopState":
+        return cls(torch.zeros((), dtype=torch.int64, device=device),
+                   torch.zeros((len(KERNELS) + n_chunks,), dtype=torch.int32,
+                               device=device),
+                   torch.zeros((1,), dtype=torch.bool, device=device))
+
+    @property
+    def steps(self) -> torch.Tensor:
+        """The bounce steps of each chunk (a view of `counts`)."""
+        return self.counts[len(KERNELS):]
+
+    def read(self) -> tuple[tuple, dict]:
+        """(steps per chunk, {kernel: launches}): one read to the host."""
+        counts = self.counts.tolist()
+        return tuple(counts[len(KERNELS):]), dict(zip(KERNELS, counts))
+
+
+# ---- the condition kernels' plain twins (csrc/frame_loop.cu) --------------
+# Each counts its run in the loop state, computes the next state from its
+# tensors and writes the condition it sets into a one-element bool tensor;
+# none reads to the host.
+
+def reset_loops(state: LoopState) -> None:
+    """The program's "reset" node: chunk index and counts to 0."""
+    state.chunk_index.zero_()
+    state.counts.zero_()
+
+
+def loop_reset(bounces, state: LoopState, first_step: bool, n_bounces: int) -> None:
+    """`loop_reset_kernel`: a chunk's bounce loop is entered when the eager
+    loop's first test passes and the depth cap is not 0."""
+    state.counts[KERNELS.index("loop_reset")].add_(1)
+    bounces.fill_(bool(first_step and n_bounces > 0))
+
+
+def bounce_condition(bounces, state: LoopState, n_bounces: int) -> None:
+    """`bounce_condition_kernel`: count the step for the current chunk, and
+    go on while a ray is alive for the next one and the cap allows it."""
+    state.counts[KERNELS.index("bounce_condition")].add_(1)
+    ci = state.chunk_index.reshape(1)
+    n = state.steps.index_select(0, ci) + 1
+    state.steps.index_copy_(0, ci, n)
+    bounces.copy_(state.flag & (n < n_bounces))
+
+
+def chunk_advance(chunks, state: LoopState, n_chunks: int) -> None:
+    """`chunk_advance_kernel`: the next chunk, while there is one."""
+    state.counts[KERNELS.index("chunk_advance")].add_(1)
+    state.chunk_index.add_(1)
+    chunks.copy_(state.chunk_index < n_chunks)
+
+
+def interpret(program, state: LoopState, pieces: dict, n_chunks: int,
+              n_bounces: int, first_step: bool) -> None:
+    """Run `program` as the frame graph runs it, node by node, with the
+    pieces (`pieces[name]()`) and the kernels' plain twins over `state`.
+    Unlike the frame graph, the interpreter reads each condition to the
+    host, with `tolist()` (on a CUDA tensor a sync: only the comparison of
+    the kernels with their twins runs the interpreter there)."""
+    dev = state.counts.device
+    conds = {c: torch.zeros((1,), dtype=torch.bool, device=dev) for c in CONDITIONS}
+    conds["chunks"].fill_(n_chunks > 0)  # the graph's default, at its launch
+    twins = {"loop_reset": lambda: loop_reset(conds["bounces"], state, first_step,
+                                              n_bounces),
+             "bounce_condition": lambda: bounce_condition(conds["bounces"], state,
+                                                          n_bounces),
+             "chunk_advance": lambda: chunk_advance(conds["chunks"], state, n_chunks)}
+
+    def run(nodes):
+        for node in nodes:
+            kind = node[0]
+            if kind == "reset":
+                reset_loops(state)
+            elif kind == "piece":
+                pieces[node[1]]()
+            elif kind == "kernel":
+                twins[node[1]]()
+            else:
+                while conds[node[1]].tolist()[0]:
+                    run(node[2])
+
+    run(program)
+
+
+# ---- the frame graph on the card (csrc/frame_loop.cu) ----------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# cudaGraphNodeType's order (csrc/frame_loop.cu node_type_name)
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "child graph", "empty",
+              "event wait", "event record", "semaphore signal", "semaphore wait",
+              "memory allocation", "memory free", "batch memory op", "conditional")
+
+
+@functools.cache
+def _loop_lib():
+    """The frame-loop entry points of the kernels' library (built from
+    csrc/ at first use)."""
+    from raytracing_gpu_tpu_torch.csrc.build import load_library
+
+    lib = load_library()
+    return {
+        "versions": ctypes.CFUNCTYPE(_I, ctypes.POINTER(_I), ctypes.POINTER(_I))(
+            ("rgt_cuda_versions", lib)),
+        "build": ctypes.CFUNCTYPE(_I, ctypes.POINTER(_I), _I, ctypes.POINTER(_P), _P, _P,
+                                  _P, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_P),
+                                  ctypes.c_char_p, _I)(("rgt_frame_graph_build", lib)),
+        "launch": ctypes.CFUNCTYPE(_I, _P, _P)(("rgt_frame_graph_launch", lib)),
+        "destroy": ctypes.CFUNCTYPE(_I, _P)(("rgt_frame_graph_destroy", lib)),
+        "error_string": ctypes.CFUNCTYPE(ctypes.c_char_p, _I)(("rgt_error_string", lib)),
+    }
+
+
+def cuda_versions() -> tuple[int, int]:
+    """(the CUDA version the system supports, the kernels' library's
+    runtime version), e.g. 12080 for 12.8; conditional WHILE nodes need
+    12030 or later."""
+    system, runtime = _I(), _I()
+    rc = _loop_lib()["versions"](ctypes.byref(system), ctypes.byref(runtime))
+    if rc:
+        raise RuntimeError(f"reading the CUDA versions: {_loop_lib()['error_string'](rc)}")
+    return system.value, runtime.value
+
+
+class FrameGraph:
+    """`PROGRAM` assembled into one executable CUDA graph over the pieces'
+    `cudaGraph_t`s (`pieces[name]`, an int) and the loop state, on the
+    current device. `piece_nodes`: each piece's node types and their counts
+    (child graphs' nodes included), from the walk that refuses the types a
+    conditional body may not hold. `launches` counts `launch` calls.
+    Assembly fails with a RuntimeError naming the step; so does `launch`."""
+
+    def __init__(self, state: LoopState, pieces: dict, n_chunks: int, n_bounces: int,
+                 first_step: bool):
+        lib = _loop_lib()
+        code = encode_program(PROGRAM)
+        self._state = state  # the graph writes these tensors
+        graphs = (_P * len(PIECES))(*(pieces[p] for p in PIECES))
+        nodes = (_I * (len(PIECES) * len(NODE_TYPES)))()
+        exec_ = _P()
+        err = ctypes.create_string_buffer(512)
+        rc = lib["build"]((_I * len(code))(*code), len(code), graphs,
+                          state.chunk_index.data_ptr(), state.counts.data_ptr(),
+                          state.flag.data_ptr(), n_chunks, n_bounces, int(first_step),
+                          nodes, ctypes.byref(exec_), err, len(err))
+        if rc:
+            raise RuntimeError(f"assembling the frame graph failed at "
+                               f"{err.value.decode() or lib['error_string'](rc).decode()}")
+        self._exec = exec_.value
+        self.launches = 0
+        k = len(NODE_TYPES)
+        self.piece_nodes = {p: {t: n for t, n in zip(NODE_TYPES, nodes[i * k:(i + 1) * k])
+                                if n}
+                            for i, p in enumerate(PIECES)}
+
+    def launch(self, stream) -> None:
+        """One launch on `stream` (a torch.cuda.Stream); does not sync."""
+        rc = _loop_lib()["launch"](self._exec, stream.cuda_stream)
+        if rc:
+            raise RuntimeError("launching the frame graph failed: "
+                               f"{_loop_lib()['error_string'](rc).decode()}")
+        self.launches += 1
+
+    def __del__(self):
+        if getattr(self, "_exec", None):
+            _loop_lib()["destroy"](self._exec)
+            self._exec = None
+
+
+@contextlib.contextmanager
+def counted_syncs():
+    """Counts the host syncs torch makes inside the block, on a card (sync
+    debug mode "warn", whose warnings are caught here): yields an object
+    whose `n` holds the count once the block has ended. Other warnings are
+    passed on."""
+    count = types.SimpleNamespace(n=0)
+    before = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield count
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+    for w in caught:
+        if "called a synchronizing CUDA operation" in str(w.message):
+            count.n += 1
+        else:
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
 
 
 @contextlib.contextmanager
@@ -148,19 +423,22 @@ def capture_graph(graph, fn, stream, pool=None) -> None:
 
 
 class FramePlan:
-    """One scene's frame as three captured pieces and a replay loop (see
-    the module docstring). `frame` is the pipeline's `FrameLayout`,
-    `n_bounces` the depth cap, `step(o, d, coef, alive, color)` one bounce
-    step returning `(o, d, coef, use, color)` and `fold(colors)` the fold of
-    a chunk's subsamples. Built on `frame.scene`'s device: captured there on
-    a card, run uncaptured on the CPU.
+    """One scene's frame as three captured pieces assembled into one CUDA
+    graph with its loops on the device (see the module docstring). `frame`
+    is the pipeline's `FrameLayout`, `n_bounces` the depth cap,
+    `step(o, d, coef, alive, color)` one bounce step returning
+    `(o, d, coef, use, color)` and `fold(colors)` the fold of a chunk's
+    subsamples. Built on `frame.scene`'s device: captured and assembled there
+    on a card, interpreted on the CPU.
 
-    After construction: `graphs` (pieces captured, 0 on the CPU),
-    `capture_ms` (warm-up and capture), `held_bytes` (memory the card
-    reserved for the buffers and the graphs, `reserved_bytes`; nothing the
+    After construction: `graph` (the `FrameGraph` a frame launches, None on
+    the CPU), `graphs` (1 on the card, 0 on the CPU), `piece_nodes` (each
+    piece's node types and their counts, on the card), `capture_ms` (warm-up, capture and
+    assembly; `assembly_ms` the last alone), `held_bytes` (memory the card
+    reserved for the buffers and the pieces, `reserved_bytes`; nothing the
     allocator had cached is released), `warmup_launches` and
-    `graph_launches` (kernel launches of the warm-up, and of one replay of
-    each piece); after each `render()`, `last_frame` (`FrameCounts`)."""
+    `graph_launches` (kernel launches of the warm-up, and of one run of each
+    piece); after each `render()`, `last_frame` (`FrameCounts`)."""
 
     def __init__(self, frame: FrameLayout, cfg, n_bounces: int, step, fold):
         self.frame, self.n_bounces = frame, n_bounces
@@ -181,7 +459,7 @@ class FramePlan:
             self._pos = frame.scene.camera.position
             cops = ColorOps(cfg.quantize)
             n = frame.chunk
-            self._chunk_index = torch.zeros((), dtype=torch.int64, device=dev)
+            self._loop = LoopState.zeros(self.n_chunks, dev)
             self._o = torch.zeros((n, 3), device=dev)
             self._d = torch.zeros((n, 3), device=dev)
             self._coef = torch.zeros((n,), device=dev)
@@ -189,18 +467,17 @@ class FramePlan:
             self._color = cops.zeros((n,), device=dev)
             rows = n // 4 if frame.fold4 else n
             self._out = torch.zeros((self.n_chunks, rows, 3), device=dev)
-            self._flag = torch.zeros((1,), dtype=torch.bool,
-                                     pin_memory=dev.type == "cuda")
-            self._flag_host = self._flag.numpy()
             self._pieces = {"rays": self._rays, "step": self._step,
                             "fold": self._fold}
-            self._graphs = None
+            self._graphs = self.graph = None
+            self.piece_nodes = {}
+            self.assembly_ms = 0.0
             self.warmup_launches = {k: 0 for k in ck.LAUNCHES}
             self.graph_launches = {p: dict(self.warmup_launches) for p in PIECES}
             if dev.type == "cuda":
                 with _current(dev):
                     self._capture()
-        self.graphs = len(self._graphs or ())
+        self.graphs = int(self.graph is not None)
         self.held_bytes = reserved_bytes(dev) - reserved
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
@@ -210,7 +487,7 @@ class FramePlan:
         """The chunk's camera rays and a fresh state."""
         dev = self.device
         chunk = self.frame.chunk
-        r = torch.clamp(self._chunk_index * chunk + torch.arange(chunk, device=dev),
+        r = torch.clamp(self._loop.chunk_index * chunk + torch.arange(chunk, device=dev),
                         max=self.frame.n_rays - 1)
         o, d = camera_ops.make_rays(self._u, self._v, self._C, self._pos,
                                     self.frame.coords(r))
@@ -236,20 +513,21 @@ class FramePlan:
         for buf, new in ((self._o, o), (self._d, d), (self._coef, coef),
                          (self._alive, use), (self._color, color)):
             buf.copy_(new)
-        self._flag.copy_(more.any().reshape(1), non_blocking=True)
+        self._loop.flag.copy_(more.any().reshape(1))
 
     def _fold(self):
         """The chunk's colors (or pixels) into the frame buffer."""
         colors = self._fold_fn(self._color) if self.frame.fold4 else self._color
-        self._out.index_copy_(0, self._chunk_index.reshape(1), colors[None])
+        self._out.index_copy_(0, self._loop.chunk_index.reshape(1), colors[None])
 
-    # ---- capture and replay ----------------------------------------------
+    # ---- capture, assembly and launch -------------------------------------
 
     def _capture(self):
         """Warm each piece up on a side stream of the plan's device, in
         frame order and with any host sync raising, then capture it into a
-        CUDA graph on the same stream; all three share one memory pool (they
-        run one after another on one stream)."""
+        CUDA graph on the same stream, keeping its `cudaGraph_t`; all three
+        share one memory pool (they run one after another on one stream).
+        Then assemble them into the frame graph."""
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -267,7 +545,7 @@ class FramePlan:
         pool = torch.cuda.graph_pool_handle()
         graphs = {}
         for name in PIECES:
-            graph = torch.cuda.CUDAGraph()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             with ck.captured_launches() as counts:
                 try:
                     # on the side stream: torch's default capture stream
@@ -279,42 +557,47 @@ class FramePlan:
                                        f"{e}") from e
             graphs[name] = graph
             self.graph_launches[name] = counts
-        self._graphs = graphs
+        self._graphs = graphs  # they hold the pieces' memory pool
+        t0 = time.perf_counter()
+        raw = {name: g.raw_cuda_graph() for name, g in graphs.items()}
+        try:
+            self.graph = FrameGraph(self._loop, raw, self.n_chunks, self.n_bounces,
+                                    self.first_step)
+        except RuntimeError as e:
+            raise RuntimeError(f"SceneRenderer: {e}") from e
+        self.piece_nodes = self.graph.piece_nodes
         torch.cuda.synchronize(dev)
-
-    def _run(self, name):
-        if self._graphs is None:
-            self._pieces[name]()
-        else:
-            self._graphs[name].replay()
-            ck.add_launches(self.graph_launches[name])
-
-    def _any_alive(self) -> bool:
-        """Wait for the last step and read its flag."""
-        if self._graphs is not None:
-            torch.cuda.current_stream(self.device).synchronize()
-        return bool(self._flag_host[0])
+        self.assembly_ms = (time.perf_counter() - t0) * 1e3
 
     @torch.no_grad()
     def render(self) -> torch.Tensor:
         """One frame: (H,W,3) float32 in [0,255] on the device, a tensor of
         its own (the frame buffer is reused by the next frame)."""
-        syncs, steps = 0, []
         with _current(self.device):
-            for ci in range(self.n_chunks):
-                self._chunk_index.fill_(ci)
-                self._run("rays")
-                n = 0
-                go = self.first_step
-                while go and n < self.n_bounces:
-                    self._run("step")
-                    n += 1
-                    if n < self.n_bounces:
-                        syncs += 1
-                        go = self._any_alive()
-                self._run("fold")
-                steps.append(n)
-        self.last_frame = FrameCounts(2 * self.n_chunks + sum(steps), syncs,
-                                      tuple(steps))
-        out = self._out.reshape(-1, 3)[:self.frame.n_out]
-        return self.frame.finish(out).clone()
+            if self.graph is None:
+                interpret(PROGRAM, self._loop, self._pieces, self.n_chunks,
+                          self.n_bounces, self.first_step)
+                out = self._finish()
+                launches, syncs = 0, None
+            else:
+                before = self.graph.launches
+                with counted_syncs() as synced:
+                    self.graph.launch(torch.cuda.current_stream(self.device))
+                    out = self._finish()
+                launches, syncs = self.graph.launches - before, synced.n
+            # the frame's one read back, after its last chunk (`tolist`
+            # dispatches no operation, so the CPU tests' guard lets it by)
+            steps, loops = self._loop.read()
+        if self.graph is not None:
+            # each piece ran as often as the kernel after it in PROGRAM
+            runs = {"rays": loops["loop_reset"], "step": loops["bounce_condition"],
+                    "fold": loops["chunk_advance"]}
+            for piece, n in runs.items():
+                ck.add_launches({k: c * n for k, c in self.graph_launches[piece].items()})
+            for k, n in loops.items():
+                LAUNCHES[k] += n
+        self.last_frame = FrameCounts(launches, syncs, steps, loops)
+        return out
+
+    def _finish(self):
+        return self.frame.finish(self._out.reshape(-1, 3)[:self.frame.n_out]).clone()

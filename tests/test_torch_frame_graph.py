@@ -1,6 +1,7 @@
 """The captured frame (`utils/frame_graph.FramePlan`) on the CPU, where its
-three pieces are called as they stand over the same buffers and by the same
-replay loop that replays them as CUDA graphs on the card.
+three pieces are called as they stand over the same buffers, in the order
+of the frame program the card assembles them into (one CUDA graph with its
+loops on the device; `tests/test_torch_frame_loop.py` holds the program).
 
 - the plan's frame is bit-equal (`torch.equal`) to the eager frame
   (`render._render_frame`) in both modes, on both kernel
@@ -11,7 +12,7 @@ replay loop that replays them as CUDA graphs on the card.
 - no piece reads a value back to the host, nor makes a tensor from Python
   data (on the card an H2D copy from pageable memory): what would break a
   capture on the card;
-- which frames take the plan, and the launch bookkeeping of replays.
+- which frames take the plan, and the launch bookkeeping of captured pieces.
 """
 
 import importlib
@@ -109,7 +110,10 @@ def test_plan_frame_equals_eager_frame(spheres, case):
         assert max(steps) == plan.n_bounces
     else:  # mirrors, but every chunk's rays die before the cap
         assert max(steps) > 1 and max(steps) < plan.n_bounces
-    assert plan.last_frame.replays == 2 * plan.n_chunks + sum(steps)
+    f = plan.last_frame  # interpreted: no graph launch, no device to sync with
+    assert (f.launches, f.syncs) == (0, None)
+    assert f.loops == {"loop_reset": plan.n_chunks, "bounce_condition": sum(steps),
+                       "chunk_advance": plan.n_chunks}
 
 
 def test_plan_frame_on_the_grid_with_front_to_back(grid):
@@ -190,7 +194,9 @@ def test_pieces_read_nothing_back(spheres, case):
     with _NoHostReads():
         for piece in frame_graph.PIECES:
             plan._pieces[piece]()
-        got = plan.render()  # the loop itself reads only the host flag
+        # the interpreter reads its conditions with `tolist()`, which the
+        # guard lets by; the pieces and the twins it calls read nothing
+        got = plan.render()
     assert torch.equal(got, want)
 
 
@@ -244,7 +250,7 @@ def test_captured_launches_count_once_per_replay():
 
 @pytest.mark.cuda
 def test_scene_renderer_captures_its_frame_on_the_card(spheres):
-    """On the card the frame is three graphs, replayed; the image and the
+    """On the card the frame is one graph, launched; the image and the
     launches equal the eager frame's (`unroll="static"` stays eager)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA graphs and kernels have no CPU mode)")
@@ -253,7 +259,7 @@ def test_scene_renderer_captures_its_frame_on_the_card(spheres):
         graph = SceneRenderer(spheres, cfg, device="cuda")
         eager = SceneRenderer(spheres, RenderConfig(ray_chunk=CHUNK, unroll="static", **kw),
                               device="cuda")
-        assert graph.plan is not None and graph.plan.graphs == 3 and eager.plan is None
+        assert graph.plan is not None and graph.plan.graphs == 1 and eager.plan is None
         counts = []
         for r in (graph, eager):
             ck.reset_launch_counts()

@@ -100,7 +100,8 @@ def test_grad_matches_jax(jscene, tscene, port_backend, jax_backend):
     jparams = jextract(dev)
     jcfg = JConfig(backend=jax_backend, **KW)
     want = jax.grad(lambda p: jnp.mean(jrender_image(jinsert(dev, p), jcfg)))(jparams)
-    params = params_from_numpy({k: np.asarray(v) for k, v in jparams.items()})
+    params = params_from_numpy({k: np.asarray(v) for k, v in jparams.items()},
+                               device="cpu")
     got = _grads(tscene, RenderConfig(backend=port_backend, **KW), params)
     assert sorted(got) == sorted(PARAM_KEYS) == sorted(want)
     for k in PARAM_KEYS:

@@ -100,7 +100,7 @@ def test_params_round_trip_and_bridge(jscene, tscene):
     assert sorted(jparams) == sorted(PARAM_KEYS) == sorted(PARAM_SPECS)
     params = extract_params(tscene)
     assert list(params) == list(PARAM_KEYS)
-    bridged = params_from_numpy(jparams)
+    bridged = params_from_numpy(jparams, device="cpu")
     for k in PARAM_KEYS:
         assert bridged[k].dtype == torch.float32
         assert torch.equal(bridged[k], params[k]), k
