@@ -45,7 +45,8 @@ after it:
   steps run); the gradient of `mean(render_image)` on
   the card against the same backend on CPU tensors (the kernels' plain
   versions) for all 13 parameter groups at 16x16 and 2 bounces, twice on the
-  card; `ops.camera.tanf` on the card bit-equal to the host's libm `tanf`;
+  card (through `render_image`'s plan: the first call captures, the second
+  replays); `ops.camera.tanf` on the card bit-equal to the host's libm `tanf`;
   capturable Adam in a captured step against optax's update arithmetic and
   a captured `loss_blur` step against the eager one (32x32); 20
   Adam steps on the sphere scene at 256x256 (262,144 rays in 4 chunks, depth
@@ -59,6 +60,19 @@ after it:
   chunk early); 3 captured steps with `remat=False`, 2 with the vertices
   and the field of view free too, and a save / resume round trip of the
   train state (at 32x32 a restored state's next step captures again);
+- `render_image` through its plan (`[image]`, `utils/image_graph.py`): the
+  256x256 sphere scene with all 13 groups requiring grad, mean(image)
+  backward, three captured calls (the first the capture, then replays of a
+  forward and a backward graph) in turns with three eager calls
+  (`plan=False`), new parameters each turn: images bit-equal, gradients
+  within rtol 1e-3 / atol 1e-4 of a group's largest entry, two graph
+  replays and no host sync (counted) per replayed call, K1 and K2 once per
+  chunk and bounce step and K3 twice; the backward pass of a stale forward
+  pass raising; GPU mode at 64x64 x2 captured against eager; and without
+  grad the 512x512 CPU-mode frame (match: the frame program after its
+  inputs graph) bit-equal to `SceneRenderer`'s with equal steps per chunk,
+  timed beside it in turns, and with the camera and vertices moved equal to
+  a fresh `SceneRenderer` of the moved scene;
 - the file entry (`[entry]`): the CPU-mode sphere scene written as `.svati`
   text, parsed by the native parser (built with native="force") and by the
   Python parser, both equal to the scene leaf for leaf; `render(path,
@@ -174,7 +188,7 @@ from raytracing_gpu_tpu_torch.parallel.checkpoint import (
 from raytracing_gpu_tpu_torch.parallel.render import frame_inputs, split_scene
 from raytracing_gpu_tpu_torch.parallel.train import PARAM_KEYS
 from raytracing_gpu_tpu_torch.render import _pick_block, _swiz_ray_ids, frame_depth
-from raytracing_gpu_tpu_torch.utils import frame_graph, profiling
+from raytracing_gpu_tpu_torch.utils import frame_graph, image_graph, profiling
 from raytracing_gpu_tpu_torch.utils.compare import assert_images_close
 from raytracing_gpu_tpu_torch.utils.image import ppm_bytes, write_png, write_ppm
 from raytracing_gpu_tpu_torch.utils.inspect import main as inspect_main
@@ -1257,10 +1271,18 @@ def check_gradient_against_plain(dev):
             ("cuda_matmul", 1, ("vertices", "kd", "lights_rgb"),
              ("vertices", "kd", "lights_rgb"))):
         cfg = RenderConfig(quantize="smooth", backend=backend, diff_max_depth=depth)
+        got, card_ms = wall_ms(lambda: render_gradients(scene, cfg, dev))
         ck.reset_launch_counts()
-        (got, again), card_ms = wall_ms(lambda: [render_gradients(scene, cfg, dev)
-                                                 for _ in range(2)])
-        counts = {k: n // 2 for k, n in ck.LAUNCHES.items()}
+        again, again_ms = wall_ms(lambda: render_gradients(scene, cfg, dev))
+        counts = dict(ck.LAUNCHES)
+        plan = image_graph.image_plans()[-1]
+        if (plan.captures, plan.replays, plan.backward_replays, plan.last_call) != (
+                1, 1, 2, "replay"):
+            raise AssertionError(f"gradient ({backend}): the plan captured "
+                                 f"{plan.captures} times, replayed its forward graph "
+                                 f"{plan.replays} and its backward graph "
+                                 f"{plan.backward_replays} times, last call "
+                                 f"{plan.last_call!r}")
         t0 = time.perf_counter()
         ref = render_gradients(scene, cfg, "cpu")
         cpu_ms = (time.perf_counter() - t0) * 1e3
@@ -1283,8 +1305,13 @@ def check_gradient_against_plain(dev):
             f"{GRAD_ATOL_SHARE} of the largest entry of the plain path's; largest "
             f"|d| {worst:.3e} of a group's largest entry; {', '.join(nonzero)} not "
             f"all zero; second run on the card differs by at most {rerun:.3e}; "
-            f"launches of one forward+backward {counts}; host ms: two on the card "
-            f"{card_ms:.0f}, the plain path {cpu_ms:.0f}")
+            f"through render_image's plan: the first call captured it (warm-up and "
+            f"capture {plan.capture_ms:.1f} ms, {plan.held_bytes / 2**20:.1f} MiB), "
+            f"the second replayed its forward and backward graphs ({plan.captures} "
+            f"capture, {plan.replays} forward and {plan.backward_replays} backward "
+            f"replays, the first backward replay the capturing call's); launches of "
+            f"the replayed forward+backward {counts}; host ms: capturing call "
+            f"{card_ms:.0f}, replayed call {again_ms:.0f}, the plain path {cpu_ms:.0f}")
 
 
 TRAIN = dict(size=256, ray_chunk=65536, depth=6, steps=20, lr=1e-2)
@@ -1675,6 +1702,290 @@ def run_training_phases(dev, smi, want_profile, results):
     check_device_tanf(dev)
     check_capturable_adam(dev)
     return check_training(dev, smi, want_profile)
+
+
+# ---------------------------------------------------------------------------
+# render_image through its plan: forward and backward as captured CUDA
+# graphs, the no-grad while-loop frame through the frame program
+# ---------------------------------------------------------------------------
+
+IMAGE = dict(size=256, depth=6, gpu_size=64, gpu_aliasing=2, gpu_max_bounce=2)
+
+
+def image_params(scene, seed, dev):
+    """All 13 groups on the card, requiring grad: the scene's own (seed 0),
+    or with `kd` and `lights_rgb` moved (`perturbed_params`) and the
+    vertices by up to 1e-3, from the seed."""
+    params = extract_params(scene)
+    if seed:
+        params = perturbed_params(scene, seed)
+        v = params["vertices"]
+        noise = np.random.default_rng(seed).uniform(-1e-3, 1e-3, tuple(v.shape))
+        params["vertices"] = v + torch.from_numpy(noise.astype(np.float32))
+    return {k: v.detach().to(dev).requires_grad_() for k, v in params.items()}
+
+
+def image_call(scene_d, params, cfg, plan):
+    """One synchronised `render_image` forward and backward pass of
+    mean(image) over `params` (leaves on the card): (image, {group:
+    gradient}, host ms, kernel launches, host syncs counted in the call)."""
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with frame_graph.counted_syncs() as synced:
+        img = render_image(insert_params(scene_d, params), cfg, device=scene_d.device,
+                           plan=plan)
+        img.mean().backward()
+    torch.cuda.synchronize()
+    return (img.detach(), {k: v.grad for k, v in params.items()},
+            (time.perf_counter() - t0) * 1e3, dict(ck.LAUNCHES), synced.n)
+
+
+def require_close_grads(got, want, what):
+    """Every group within rtol 1e-3 / atol 1e-4 of its largest entry;
+    returns the largest |d| over that entry."""
+    worst = 0.0
+    for k in PARAM_KEYS:
+        g, w = got[k], want[k]
+        scale = float(w.abs().max())
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: the gradient of {k} is not finite")
+        if not torch.allclose(g, w, rtol=GRAD_RTOL, atol=GRAD_ATOL_SHARE * scale):
+            raise AssertionError(f"{what}: the gradient of {k} off by "
+                                 f"{float((g - w).abs().max()):.3e} of {scale:.3e}")
+        worst = max(worst, float((g - w).abs().max()) / max(scale, 1e-30))
+    return worst
+
+
+def check_image_grad(dev, smi, want_profile):
+    """The 256x256 cell with all 13 groups requiring grad: the captured call
+    (first a capture, then replays) and the eager one (`plan=False`) in
+    turns, each turn with new parameter values: images bit-equal, gradients
+    within the tolerance, two graph replays and no host sync per replayed
+    call; then the stale-forward error. With `want_profile` one captured
+    and one eager call are traced. Returns the launches of one replayed
+    call."""
+    size, depth = IMAGE["size"], IMAGE["depth"]
+    scene = make_sphere_scene(size, size, **SPHERES)
+    scene_d = scene.to(dev)
+    cfg = RenderConfig(mode="cpu", quantize="smooth", backend="cuda",
+                       ray_chunk=TRAIN["ray_chunk"], diff_max_depth=depth, remat=True)
+    n_chunks = size * size * 4 // TRAIN["ray_chunk"]
+    addr = cached_block(dev)
+    runs = {"graph": [], "eager": []}
+    # graph, eager, eager, graph, graph, eager: the graph's first call captures
+    for turn, order in enumerate((("graph", "eager"), ("eager", "graph"),
+                                  ("graph", "eager"))):
+        params = image_params(scene, turn, dev)
+        for which in order:
+            p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+            runs[which].append(image_call(scene_d, p, cfg,
+                                          None if which == "graph" else False))
+            if which == "graph" and len(runs["graph"]) == 1:
+                require_still_reserved(addr, "render_image capture")
+    plans = image_graph.image_plans()
+    plan = plans[-1]
+    if (plan.captures, plan.replays, plan.backward_replays, plan.last_call) != (
+            1, 2, 3, "replay") or plan.frame_program or not plan.grad:
+        raise AssertionError(f"render_image 256x256: {plan.captures} captures, "
+                             f"{plan.replays} forward and {plan.backward_replays} "
+                             f"backward replays, last call {plan.last_call!r}")
+    worst = 0.0
+    for turn, (g, e) in enumerate(zip(runs["graph"], runs["eager"])):
+        if not torch.equal(g[0], e[0]):
+            raise AssertionError(f"render_image 256x256, turn {turn}: the captured "
+                                 f"image is not bit-equal to the eager one "
+                                 f"({int((g[0] != e[0]).any(-1).sum())} pixels differ)")
+        worst = max(worst, require_close_grads(g[1], e[1], f"render_image 256x256, "
+                                               f"turn {turn}"))
+    check_image(runs["graph"][0][0], size, size)
+    for k in ("vertices", "normals", "kd", "lights_rgb", "cam_fov"):
+        if not bool(runs["graph"][-1][1][k].any()):
+            raise AssertionError(f"render_image 256x256: the gradient of {k} is all zero")
+    per_call = runs["graph"][-1][3]
+    sweeps = n_chunks * depth
+    want = {"nearest_hit": sweeps, "nearest_dist": sweeps, "fetch_rows": 2 * sweeps}
+    if any(r[3] != per_call for r in runs["graph"][1:]) or any(
+            per_call[k] != n for k, n in want.items()):
+        raise AssertionError(f"render_image 256x256: launches per replayed call "
+                             f"{[r[3] for r in runs['graph']]}, expected {want}")
+    syncs = [r[4] for r in runs["graph"][1:]]
+    if any(syncs):
+        raise AssertionError(f"render_image 256x256: host syncs {syncs} counted in the "
+                             "replayed calls")
+    eager_counts = runs["eager"][-1][3]
+    tg = [r[2] for r in runs["graph"]]
+    te = [r[2] for r in runs["eager"]]
+    ms, ms_e = float(np.median(tg[1:])), float(np.median(te))
+    warm = {k: n for k, n in plan.warmup_launches.items() if n}
+    say("image", f"render_image, spheres {size}x{size} ({scene.n_triangles} tris, "
+        f"{n_chunks} chunks, depth {depth}), cuda, remat=True, all 13 groups "
+        f"requiring grad, mean(image).backward(): 3 captured calls (the first the "
+        f"capture) in turns with 3 eager calls (plan=False), new parameters each turn: "
+        f"images bit-equal, gradients within {worst:.3e} of a group's largest entry; "
+        f"ms per forward+backward graph {[round(t, 1) for t in tg]}, eager "
+        f"{[round(t, 1) for t in te]}: graph {ms:.1f} (replays), eager {ms_e:.1f}, "
+        f"eager/graph {ms_e / ms:.2f}x; capture {plan.capture_ms:.1f} ms (of which the "
+        f"warm-up forward and backward {plan.warmup_ms:.1f} ms), the card reserving "
+        f"{plan.held_bytes / 2**20:.1f} MiB for the buffers and the graphs' pool (the "
+        f"image's whole autograd graph), a block cached before still reserved; "
+        f"{plan.captures} capture, {plan.replays} forward and {plan.backward_replays} "
+        f"backward replays: 2 graph launches per replayed call; host syncs counted in "
+        f"the replayed calls {syncs}, in the capturing call {runs['graph'][0][4]}, in "
+        f"the eager calls {[r[4] for r in runs['eager']]}; kernel launches per replayed "
+        f"call {per_call} (forward graph {plan.forward_launches}, backward graph "
+        f"{plan.backward_launches}, warm-up {warm}), eager {eager_counts}; {smi}")
+    if want_profile:
+        params = image_params(scene, 4, dev)
+        for plan_arg, what, unprofiled in ((None, "captured (a forward and a backward "
+                                            "replay)", ms), (False, "eager", ms_e)):
+            profile_call(lambda: render_image(insert_params(scene_d, params), cfg,
+                                              device=dev, plan=plan_arg).mean().backward(),
+                         f"render_image {size}x{size}, remat=True, all 13 groups, "
+                         f"forward + backward, {what}", unprofiled)
+
+    # the stale forward: two forward passes of the plan, then the first's backward
+    a = render_image(insert_params(scene_d, image_params(scene, 5, dev)), cfg, device=dev)
+    b = render_image(insert_params(scene_d, image_params(scene, 6, dev)), cfg, device=dev)
+    try:
+        a.mean().backward()
+    except RuntimeError as e:
+        if "plan=False" not in str(e):
+            raise
+        stale = str(e)
+    else:
+        raise AssertionError("render_image: the backward pass of a stale forward pass "
+                             "did not raise on the card")
+    b.mean().backward()
+    torch.cuda.synchronize()
+    say("image", f"a second forward pass of the plan, then the first image's backward: "
+        f"RuntimeError ({stale[:90]}...); the newest image's backward ran")
+    return per_call
+
+
+def check_image_gpu_mode(dev, smi):
+    """GPU mode, 64x64 at aliasing 2 and max_bounce 2, all groups requiring
+    grad: a capturing call, an eager one and a replay, images bit-equal and
+    gradients within the tolerance (the downscale's uint8 truncation has a
+    zero derivative: every group's gradient is exactly zero, as in the
+    reference)."""
+    n = IMAGE["gpu_size"]
+    scene = make_sphere_scene(n, n, **SPHERES)
+    scene_d = scene.to(dev)
+    cfg = RenderConfig(mode="gpu", quantize="smooth", backend="cuda",
+                       aliasing=IMAGE["gpu_aliasing"], max_bounce=IMAGE["gpu_max_bounce"])
+    params = image_params(scene, 3, dev)
+    runs = [image_call(scene_d, {k: v.detach().clone().requires_grad_()
+                                 for k, v in params.items()}, cfg, plan)
+            for plan in (None, False, None)]
+    plan = image_graph.image_plans()[-1]
+    for g in (runs[0], runs[2]):
+        if not torch.equal(g[0], runs[1][0]):
+            raise AssertionError("render_image, GPU mode: the captured image is not "
+                                 "bit-equal to the eager one")
+        require_close_grads(g[1], runs[1][1], "render_image, GPU mode")
+    zero = all(not bool(runs[2][1][k].any()) for k in PARAM_KEYS)
+    if (plan.captures, plan.replays, plan.last_call, runs[2][4]) != (1, 1, "replay", 0):
+        raise AssertionError(f"render_image, GPU mode: {plan.captures} captures, "
+                             f"{plan.replays} replays, {runs[2][4]} host syncs")
+    check_image(runs[2][0], n, n)
+    say("image", f"render_image, GPU mode, spheres {n}x{n} x{cfg.aliasing}, "
+        f"max_bounce {cfg.max_bounce}, all groups requiring grad: captured and "
+        f"replayed calls bit-equal to the eager call, gradients within the tolerance "
+        f"(all exactly zero: {zero}); ms capture+call {runs[0][2]:.1f}, eager "
+        f"{runs[1][2]:.1f}, replay {runs[2][2]:.1f}; launches per replayed call "
+        f"{runs[2][3]}, eager {runs[1][3]}; {smi}")
+
+
+def moved_scene(scene):
+    """The camera moved and turned and the vertices shifted by up to 1e-3:
+    another kernel pack and another camera basis."""
+    cam = dataclasses.replace(scene.camera, position=scene.camera.position + 0.05,
+                              u=scene.camera.u + 0.01)
+    v = scene.geometry.vertices
+    noise = np.random.default_rng(9).uniform(-1e-3, 1e-3, tuple(v.shape))
+    geo = dataclasses.replace(scene.geometry, vertices=v + torch.from_numpy(
+        noise.astype(np.float32)).to(v.device))
+    return dataclasses.replace(scene, camera=cam, geometry=geo)
+
+
+def check_image_frame_program(renderer, ref_img, smi):
+    """The no-grad while-loop strategy: `render_image` of the 512x512 sphere
+    scene (CPU mode, match) runs the frame program after its inputs graph,
+    bit-equal to `SceneRenderer`'s frame with equal steps per chunk, timed
+    beside it in turns; with the camera and the vertices moved before the
+    next call, equal to a fresh `SceneRenderer` of the moved scene. Returns
+    the launches of one replayed call."""
+    cfg, dev = renderer.cfg, renderer.scene.device
+    scene_d = renderer.scene
+
+    def call(scene):
+        ck.reset_launch_counts()
+        frame_graph.reset_launch_counts()
+        return wall_ms(lambda: render_image(scene, cfg, device=dev))
+
+    first, first_ms = call(scene_d)
+    plan = image_graph.image_plans()[-1]
+    if not plan.frame_program or plan.grad or plan._frame.graph is None:
+        raise AssertionError("render_image, 512x512 match: not the frame program")
+    times, again = {"renderer": [], "image": []}, None
+    for which in ("renderer", "image", "image", "renderer"):
+        if which == "renderer":
+            times[which].append(wall_ms(renderer.render_device)[1])
+        else:
+            with frame_graph.counted_syncs() as synced:
+                again, ms = call(scene_d)
+            times[which].append(ms)
+            counts = dict(ck.LAUNCHES)
+    f, ref = plan._frame.last_frame, renderer.plan.last_frame
+    for img in (first, again):
+        if not torch.equal(img, ref_img):
+            raise AssertionError("render_image, 512x512 match: not bit-equal to "
+                                 "SceneRenderer's frame")
+    # the call's one sync is the frame's read of its steps per chunk after
+    # its last chunk, as in SceneRenderer.render; none inside the frame
+    if f.steps != ref.steps or (f.launches, f.syncs) != (1, 0) or synced.n != 1:
+        raise AssertionError(f"render_image, 512x512 match: steps per chunk {f.steps} "
+                             f"(SceneRenderer's {ref.steps}), {f.launches} frame graph "
+                             f"launches and {f.syncs} syncs, {synced.n} in the call")
+    moved = moved_scene(scene_d)
+    got, moved_ms = call(moved)
+    want = SceneRenderer(moved, cfg, dev).render_device()
+    if not torch.equal(got, want) or torch.equal(got, ref_img):
+        raise AssertionError("render_image, 512x512 match, camera and vertices moved: "
+                             "not bit-equal to a fresh SceneRenderer of the moved scene")
+    if plan.replays != 3 or plan.captures != 1:
+        raise AssertionError(f"render_image, 512x512 match: {plan.captures} captures, "
+                             f"{plan.replays} replays")
+    ms_r, ms_i = float(np.mean(times["renderer"])), float(np.mean(times["image"]))
+    say("image", f"render_image without grad, spheres 512x512, CPU mode, match (the "
+        f"while-loop strategy): the inputs graph (pack and camera basis) and the frame "
+        f"graph, bit-equal to SceneRenderer's frame, steps per chunk equal "
+        f"({sum(f.steps)} in {len(f.steps)} chunks), 1 frame graph launch and 0 syncs "
+        f"in the frame, {synced.n} host sync counted in the call (the read of the "
+        f"steps per chunk after the frame); with the camera and "
+        f"the vertices moved, bit-equal to a fresh SceneRenderer's frame; ms per call "
+        f"in turns renderer {times['renderer'][0]:.1f}, image "
+        f"{times['image'][0]:.1f}, {times['image'][1]:.1f}, renderer "
+        f"{times['renderer'][1]:.1f}: render_image {ms_i:.1f}, SceneRenderer "
+        f"{ms_r:.1f}, difference {ms_i - ms_r:+.2f} ms; the capturing call "
+        f"{first_ms:.1f} ms (capture {plan.capture_ms:.1f} ms, "
+        f"{plan.held_bytes / 2**20:.1f} MiB), the moved call {moved_ms:.1f} ms; "
+        f"launches per call {counts}; {smi}")
+    return counts
+
+
+def run_image_phase(dev, smi, renderer, ref_img, want_profile):
+    """The `[image]` phase: returns the kernel launches of one replayed
+    forward+backward call at 256x256."""
+    t0 = time.perf_counter()
+    image_graph.clear_image_plans()
+    launches = check_image_grad(dev, smi, want_profile)
+    check_image_gpu_mode(dev, smi)
+    check_image_frame_program(renderer, ref_img, smi)
+    image_graph.clear_image_plans()
+    say("image", f"phase took {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2097,6 +2408,10 @@ def check_all(dev, smi, kind, count, want_profile, ranks) -> int:
     renderer, cuda_img, launches["cpu_mode"], loop_launches, traced["cuda"] = check_graph_cell(
         f"CPU mode, spheres 512x512, cuda (depth {frame_depth(spheres512, cfg)})",
         spheres512, cfg, dev, smi, k123, n_primary=cpu_rays, want_profile=want_profile)
+
+    # ---- render_image through its plan: captured forward and backward at
+    # 256x256, GPU mode, and the no-grad frame program on the same frame
+    launches["image"] = run_image_phase(dev, smi, renderer, cuda_img, want_profile)
 
     # ---- the file entry on the same scene and config: .svati, the native
     # parser and writers, render(), the CLI with --profile, inspect

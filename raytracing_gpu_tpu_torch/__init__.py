@@ -6,8 +6,9 @@ supersampling, capped bounce loop, box downscale), in `match` or `smooth`
 quantization, on an
 NVIDIA GPU, with the intersection hot path in hand-written CUDA kernels
 (`ops/cuda_intersect.py`, `csrc/intersect.cu`). `render_image` is the
-differentiable render and `parallel/` trains scene parameters on it
-(`make_train_step`, checkpoints). The JAX package
+differentiable render (on the card compiled once into CUDA graphs per
+configuration, `utils/image_graph.py`) and `parallel/` trains scene
+parameters on it (`make_train_step`, checkpoints). The JAX package
 `raytracing_gpu_tpu` is the reference it is tested against; this package
 imports only torch and numpy.
 """
@@ -28,6 +29,7 @@ from raytracing_gpu_tpu_torch.render import (
     render_image,
     render_scene,
 )
+from raytracing_gpu_tpu_torch.utils.image_graph import clear_image_plans
 
 __all__ = [
     "RenderConfig",
@@ -43,4 +45,5 @@ __all__ = [
     "render_scene",
     "render_image",
     "SceneRenderer",
+    "clear_image_plans",
 ]

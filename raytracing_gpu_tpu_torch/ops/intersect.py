@@ -81,7 +81,9 @@ class Hit:
 class SweepTape:
     """The results of one bounce step's sweeps, in call order: recorded the
     first time the step runs and, after `rewind()`, handed back when the step
-    is recomputed, so that rematerialization does not sweep again."""
+    is recomputed, so that rematerialization does not sweep again. Each
+    recomputation takes every item in order, so a second one (a backward
+    pass with `retain_graph=True`, run again) starts over at the first."""
 
     def __init__(self):
         self._items = []
@@ -95,7 +97,7 @@ class SweepTape:
             self._items.append(sweep())
             return self._items[-1]
         item = self._items[self._next]
-        self._next += 1
+        self._next = (self._next + 1) % len(self._items)
         return item
 
 

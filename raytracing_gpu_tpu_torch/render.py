@@ -30,7 +30,12 @@ depends smoothly on the scene is recomputed on each ray's winner
 (`ops/intersect.py`). With `cfg.remat` each bounce step is checkpointed and
 its sweeps are kept on a `SweepTape`, so the backward pass recomputes the
 step's arithmetic and the winner-row fetch but sweeps nothing again.
-`SceneRenderer` renders without recording.
+`SceneRenderer` renders without recording. On the card `render_image` is
+compiled once per configuration and scene structure
+(`utils.image_graph.ImagePlan`, over `IMAGE_PROGRAM`): the unrolled image
+at a fixed depth (`unrolled_image`) as a forward and a backward CUDA graph,
+or without grad in the while-loop strategy the frame program after a graph
+that rebuilds its inputs (`frame_program_inputs`).
 """
 
 from __future__ import annotations
@@ -62,6 +67,13 @@ from raytracing_gpu_tpu_torch.utils.frame_graph import (
     FrameLayout,
     FramePlan,
     uses_frame_graph,
+)
+from raytracing_gpu_tpu_torch.utils.image_graph import (
+    ImageProgram,
+    image_graph_blocker,
+    image_plan,
+    needs_grad,
+    uses_image_graph,
 )
 
 
@@ -177,11 +189,13 @@ def _trace(scene, origins, dirs, cfg, pack, n_bounces: int, gpu_semantics: bool,
 
 
 def trace_rays(scene: Scene, origins, dirs, cfg: RenderConfig, depth: int,
-               pack=None, scene_group=None):
+               pack=None, scene_group=None, fixed_depth: bool = False):
     """Emulated recursive trace() for a batch of rays: (R,3) colors in the
     cfg.quantize domain. Contributions accumulate forward through the
-    saturating add (associative for non-negative terms)."""
-    return _trace(scene, origins, dirs, cfg, pack, depth, False, scene_group)
+    saturating add (associative for non-negative terms). `fixed_depth`: see
+    `_trace`."""
+    return _trace(scene, origins, dirs, cfg, pack, depth, False, scene_group,
+                  fixed_depth)
 
 
 def _bounce(o, d, hit, use):
@@ -196,15 +210,16 @@ def _bounce(o, d, hit, use):
 
 
 def trace_rays_gpu(scene: Scene, origins, dirs, cfg: RenderConfig, pack=None,
-                   scene_group=None):
+                   scene_group=None, fixed_depth: bool = False):
     """The GPU pipeline's iterative bounce loop for a batch of rays:
     `do { tmp = trace(); color += tmp*nr_acc; nr_acc *= hit.nr } while
     (nr_acc > 0.01 && MAX_BOUNCE-- > 0)` (gpu/raytracer.cu:107-122). The
     first bounce is unconditional, accumulation is a shallow-first saturating
     add, and a ray stays alive while nr_acc > cutoff (strictly, where the CPU
-    pipeline tests coef >= cutoff), for at most max_bounce + 1 iterations."""
+    pipeline tests coef >= cutoff), for at most max_bounce + 1 iterations.
+    `fixed_depth`: see `_trace`."""
     return _trace(scene, origins, dirs, cfg, pack, cfg.max_bounce + 1, True,
-                  scene_group)
+                  scene_group, fixed_depth)
 
 
 def _kernel_pack(scene, cfg):
@@ -291,27 +306,31 @@ def assemble_cpu_image(colors, cfg: RenderConfig, width: int, height: int):
         _fold_subsamples(colors, cfg)).reshape(height, width, 3)
 
 
-def _trace_image(frame: FrameLayout, cfg, depth, pack=None):
+def _trace_image(frame: FrameLayout, cfg, depth, pack=None, fixed_depth=False,
+                 basis=camera_ops.camera_basis):
     """Colors of a frame's rays, chunk by chunk, generating each chunk's
     rays from their ids and tracing them through the CPU pipeline's
     recursion (`depth` levels) or the GPU pipeline's bounce loop. The tail
     chunk's ids are clamped to the last ray (its duplicates are sliced
     away). With `frame.fold4` each chunk's 2x2 subsamples are folded into
-    pixels: (n_rays/4, 3)."""
+    pixels: (n_rays/4, 3). `fixed_depth` runs every bounce step (see
+    `_trace`); `basis(camera)` gives the camera's (u, v, C)."""
     scene, n_rays, chunk = frame.scene, frame.n_rays, frame.chunk
     dev = scene.device
     if pack is None:
         pack = _kernel_pack(scene, cfg)
-    u, v, C = camera_ops.camera_basis(scene.camera)
+    u, v, C = basis(scene.camera)
     pos = scene.camera.position
     out = []
     for c0 in range(0, n_rays, chunk):
         r = torch.clamp(torch.arange(c0, c0 + chunk, device=dev), max=n_rays - 1)
         origins, dirs = camera_ops.make_rays(u, v, C, pos, frame.coords(r))
         if frame.gpu_semantics:
-            colors = trace_rays_gpu(scene, origins, dirs, cfg, pack)
+            colors = trace_rays_gpu(scene, origins, dirs, cfg, pack,
+                                    fixed_depth=fixed_depth)
         else:
-            colors = trace_rays(scene, origins, dirs, cfg, depth, pack)
+            colors = trace_rays(scene, origins, dirs, cfg, depth, pack,
+                                fixed_depth=fixed_depth)
         out.append(_fold_subsamples(colors, cfg) if frame.fold4 else colors)
     return torch.cat(out)[:frame.n_out]
 
@@ -390,16 +409,43 @@ def _render_frame(scene: Scene, cfg: RenderConfig, depth: int | None, pack=None)
 
 
 def frame_plan(scene: Scene, cfg: RenderConfig, depth: int | None,
-               pack=None) -> FramePlan:
+               pack=None, basis=None) -> FramePlan:
     """The frame `cfg.mode` names as a `FramePlan` over `_bounce_step`, on
     the scene's device: captured and assembled into one CUDA graph on the
-    card, its program interpreted over the same pieces on the CPU."""
+    card, its program interpreted over the same pieces on the CPU. `basis`:
+    the frame camera's (u, v, C) as tensors the caller owns and refreshes
+    in place (`frame_program_inputs`); None computes it once, on the host."""
     frame = frame_layout(scene, cfg)
     n_bounces = cfg.max_bounce + 1 if frame.gpu_semantics else depth
     step = functools.partial(_bounce_step, frame.scene, cfg, ColorOps(cfg.quantize),
                              pack, frame.gpu_semantics, None, None)
+    if basis is not None:
+        basis = (*basis, frame.scene.camera.position)
     return FramePlan(frame, cfg, n_bounces, step,
-                     functools.partial(_fold_subsamples, cfg=cfg))
+                     functools.partial(_fold_subsamples, cfg=cfg), basis)
+
+
+def unrolled_image(scene: Scene, cfg: RenderConfig, depth: int):
+    """The frame `cfg.mode` names as `render_image` captures it: every bounce
+    step of every chunk (the JAX package's unrolled strategy; a step whose
+    rays are all dead adds exact zeros, so the image is `_render_frame`'s),
+    and the kernel pack and the camera basis computed on the device, so
+    nothing is read back to the host."""
+    frame = frame_layout(scene, cfg)
+    return frame.finish(_trace_image(frame, cfg, depth, _kernel_pack(scene, cfg),
+                                     fixed_depth=True,
+                                     basis=camera_ops.camera_basis_on_device))
+
+
+def frame_program_inputs(scene: Scene, cfg: RenderConfig):
+    """(kernel pack or None, (u, v, C)): what a `FramePlan` reads besides
+    the scene, computed from the scene's tensors on the device (the basis of
+    the frame's camera: GPU mode's is the hi-res one)."""
+    camera = frame_layout(scene, cfg).scene.camera
+    return _kernel_pack(scene, cfg), camera_ops.camera_basis_on_device(camera)
+
+
+IMAGE_PROGRAM = ImageProgram(unrolled_image, frame_program_inputs, frame_plan)
 
 
 class SceneRenderer:
@@ -459,7 +505,8 @@ def render_scene(scene: Scene, cfg: RenderConfig = RenderConfig(),
 
 
 def render_image(scene: Scene, cfg: RenderConfig | None = None,
-                 depth: int | None = None, device="cuda") -> torch.Tensor:
+                 depth: int | None = None, device="cuda",
+                 plan: bool | None = None) -> torch.Tensor:
     """Differentiable render: scene -> (H,W,3) float32 image in [0,255] on
     `device`, recorded by autograd wherever a scene tensor requires grad.
     The scene is moved to `device` first (`device="cuda"` raises without a
@@ -470,12 +517,37 @@ def render_image(scene: Scene, cfg: RenderConfig | None = None,
     normals, materials, lights and camera. The recursion depth is not
     derived from the materials: it defaults to `cfg.diff_max_depth` (smooth)
     or `cfg.cpu_max_depth` (match). In GPU mode the downscale's uint8
-    truncation has a zero derivative, as in the reference."""
+    truncation has a zero derivative, as in the reference.
+
+    On the card the call is compiled once, as the JAX package jits its
+    render: an `utils.image_graph.ImagePlan` per configuration, depth,
+    scene structure and set of grad-requiring tensors captures CUDA graphs
+    on the first call and replays them after (the forward pass one replay,
+    its backward pass one more; without grad and with `resolve_unroll()`
+    False, the frame program of `SceneRenderer` after a graph that
+    recomputes the pack and the camera basis). Gradients through the
+    while-loop strategy and backend "torch" with partitioning stay eager
+    (`image_graph_blocker` says why). `plan`: None follows
+    `uses_image_graph`; True takes the plan on the CPU too, where it runs
+    uncaptured (raising `ValueError` where a blocker names a reason); False
+    renders eagerly (the counterpart of `jax.disable_jit`). One difference
+    from JAX: a plan's second forward pass overwrites what the first one's
+    backward pass needs, so the backward of any image but the newest of its
+    plan raises `RuntimeError` (call backward before rendering again, or
+    pass `plan=False`)."""
     cfg = cfg or RenderConfig(quantize="smooth")
-    scene = scene.to(resolve_device(device))
+    device = resolve_device(device)
+    scene = scene.to(device)
     if depth is None:
         depth = cfg.diff_max_depth if cfg.quantize == "smooth" else cfg.cpu_max_depth
-    return _render_frame(scene, cfg, depth)
+    grad = needs_grad(scene)
+    blocker = image_graph_blocker(cfg, grad)
+    if plan and blocker:
+        raise ValueError(f"plan=True, but this render_image call cannot be "
+                         f"captured: {blocker}")
+    if not (uses_image_graph(cfg, device, grad) if plan is None else plan):
+        return _render_frame(scene, cfg, depth)
+    return image_plan(scene, cfg, depth, grad, IMAGE_PROGRAM).image(scene)
 
 
 def render(input_path: str, output_path: str, cfg: RenderConfig = RenderConfig(),

@@ -48,7 +48,9 @@ A capture, an assembly or a launch that fails raises, naming the step;
 nothing falls back to eager rendering or to a loop driven from the host.
 The graph reads the scene's tensors and the kernel pack at the addresses
 they had at capture: like the JAX `SceneRenderer`'s closure over its scene,
-reassigning them afterwards is not seen.
+reassigning them afterwards is not seen. `render_image`'s plan
+(`utils/image_graph.py`) owns such tensors and the camera basis and
+refreshes them in place before each launch.
 """
 
 from __future__ import annotations
@@ -428,8 +430,11 @@ class FramePlan:
     is the pipeline's `FrameLayout`, `n_bounces` the depth cap,
     `step(o, d, coef, alive, color)` one bounce step returning
     `(o, d, coef, use, color)` and `fold(colors)` the fold of a chunk's
-    subsamples. Built on `frame.scene`'s device: captured and assembled there
-    on a card, interpreted on the CPU.
+    subsamples. `basis`: the camera's (u, v, C, position) as tensors the
+    caller owns and refreshes in place before each frame (the graph reads
+    them where they lie); None computes (u, v, C) once, on the host, and
+    reads `frame.scene.camera.position`. Built on `frame.scene`'s device:
+    captured and assembled there on a card, interpreted on the CPU.
 
     After construction: `graph` (the `FrameGraph` a frame launches, None on
     the CPU), `graphs` (1 on the card, 0 on the CPU), `piece_nodes` (each
@@ -440,7 +445,8 @@ class FramePlan:
     `graph_launches` (kernel launches of the warm-up, and of one run of each
     piece); after each `render()`, `last_frame` (`FrameCounts`)."""
 
-    def __init__(self, frame: FrameLayout, cfg, n_bounces: int, step, fold):
+    def __init__(self, frame: FrameLayout, cfg, n_bounces: int, step, fold,
+                 basis=None):
         self.frame, self.n_bounces = frame, n_bounces
         self._step_fn, self._fold_fn = step, fold
         self.cutoff = f32(cfg.reflect_cutoff)
@@ -454,9 +460,11 @@ class FramePlan:
         t0 = time.perf_counter()
         reserved = reserved_bytes(dev)
         with torch.no_grad():
-            # the camera basis once, on the host (camera_basis reads it back)
-            self._u, self._v, self._C = camera_ops.camera_basis(frame.scene.camera)
-            self._pos = frame.scene.camera.position
+            if basis is None:
+                # the camera basis once, on the host (camera_basis reads it back)
+                basis = (*camera_ops.camera_basis(frame.scene.camera),
+                         frame.scene.camera.position)
+            self._u, self._v, self._C, self._pos = basis
             cops = ColorOps(cfg.quantize)
             n = frame.chunk
             self._loop = LoopState.zeros(self.n_chunks, dev)

@@ -92,7 +92,7 @@ def require_capturable(optimizer) -> None:
                 f"an eager step")
 
 
-def _tensor_leaves(obj) -> list:
+def tensor_leaves(obj) -> list:
     """The tensors of a (nested) dataclass, in field order."""
     out = []
     for f in dataclasses.fields(obj):
@@ -100,11 +100,11 @@ def _tensor_leaves(obj) -> list:
         if isinstance(v, torch.Tensor):
             out.append(v)
         elif dataclasses.is_dataclass(v):
-            out += _tensor_leaves(v)
+            out += tensor_leaves(v)
     return out
 
 
-def _structure(obj) -> tuple:
+def structure(obj) -> tuple:
     """Everything of a (nested) dataclass but its tensors' values: field
     names, plain values, and each tensor's shape, dtype and device."""
     out = []
@@ -113,17 +113,17 @@ def _structure(obj) -> tuple:
         if isinstance(v, torch.Tensor):
             out.append((f.name, tuple(v.shape), v.dtype, v.device))
         elif dataclasses.is_dataclass(v):
-            out.append((f.name, _structure(v)))
+            out.append((f.name, structure(v)))
         else:
             out.append((f.name, v))
     return tuple(out)
 
 
-def _cloned(obj):
+def cloned(obj):
     """A copy of a (nested) dataclass with its own copy of every tensor."""
     return dataclasses.replace(obj, **{
         f.name: (v.clone() if isinstance(v, torch.Tensor)
-                 else _cloned(v) if dataclasses.is_dataclass(v) else v)
+                 else cloned(v) if dataclasses.is_dataclass(v) else v)
         for f in dataclasses.fields(obj) for v in (getattr(obj, f.name),)})
 
 
@@ -132,7 +132,7 @@ def _state_key(state, scene, coords, target):
     and optimizer's tensors (held, compared by identity) with their storage
     addresses, the optimizer's settings, and the inputs' structure."""
     opt = state.opt_state
-    values, objects = [_structure(scene)], [state, opt]
+    values, objects = [structure(scene)], [state, opt]
     for t in (coords, target):
         values.append((tuple(t.shape), t.dtype, t.device))
     for k, p in state.params.items():
@@ -220,14 +220,14 @@ class StepPlan:
         """Static buffers of the plan's own for a new state or structure."""
         self._graph = self._key = None
         self._state = state
-        self._scene = _cloned(scene)
+        self._scene = cloned(scene)
         self._coords, self._target = coords.clone(), target.clone()
         self._loss = torch.zeros((), device=self.device)
 
     def _load(self, scene, coords, target):
         """Copy this call's inputs into the static buffers."""
-        for buf, new in zip(_tensor_leaves(self._scene) + [self._coords, self._target],
-                            _tensor_leaves(scene) + [coords, target]):
+        for buf, new in zip(tensor_leaves(self._scene) + [self._coords, self._target],
+                            tensor_leaves(scene) + [coords, target]):
             buf.copy_(new)
 
     def _forward_backward(self):
