@@ -67,8 +67,14 @@ after it:
   (`plan=False`), new parameters each turn: images bit-equal, gradients
   within rtol 1e-3 / atol 1e-4 of a group's largest entry, two graph
   replays and no host sync (counted) per replayed call, K1 and K2 once per
-  chunk and bounce step and K3 twice; the backward pass of a stale forward
-  pass raising; GPU mode at 64x64 x2 captured against eager; and without
+  chunk and bounce step and K3 twice; two views of that scene (the camera
+  moved and turned) through the one plan, `(a.mean() + b.mean()).backward()`
+  in turns with the eager twin: a second slot captured, images bit-equal,
+  gradients within the tolerance, four graph replays and no host sync per
+  replayed call; the two backward passes in reverse order; a 3-step loop
+  that captures nothing new; on the 16x16 plan of the gradient check
+  `MAX_SLOTS + 1` outstanding images, the last rendered eagerly and
+  counted; GPU mode at 64x64 x2 captured against eager; and without
   grad the 512x512 CPU-mode frame (match: the frame program after its
   inputs graph) bit-equal to `SceneRenderer`'s with equal steps per chunk,
   timed beside it in turns, and with the camera and vertices moved equal to
@@ -1725,19 +1731,22 @@ def image_params(scene, seed, dev):
     return {k: v.detach().to(dev).requires_grad_() for k, v in params.items()}
 
 
-def image_call(scene_d, params, cfg, plan):
-    """One synchronised `render_image` forward and backward pass of
-    mean(image) over `params` (leaves on the card): (image, {group:
-    gradient}, host ms, kernel launches, host syncs counted in the call)."""
+def image_call(scene_d, params, cfg, plan, views=(None,)):
+    """One synchronised `render_image` call per view of `params` (leaves on
+    the card; a view maps them to its own, None keeps them) and one
+    backward pass of the sum of the images' means: (the images stacked,
+    {group: gradient}, host ms, kernel launches, host syncs counted in the
+    call)."""
     ck.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with frame_graph.counted_syncs() as synced:
-        img = render_image(insert_params(scene_d, params), cfg, device=scene_d.device,
-                           plan=plan)
-        img.mean().backward()
+        imgs = [render_image(insert_params(scene_d, view(params) if view else params),
+                             cfg, device=scene_d.device, plan=plan) for view in views]
+        sum(img.mean() for img in imgs).backward()
     torch.cuda.synchronize()
-    return (img.detach(), {k: v.grad for k, v in params.items()},
+    return (torch.stack([img.detach() for img in imgs]),
+            {k: v.grad for k, v in params.items()},
             (time.perf_counter() - t0) * 1e3, dict(ck.LAUNCHES), synced.n)
 
 
@@ -1757,19 +1766,25 @@ def require_close_grads(got, want, what):
     return worst
 
 
-def check_image_grad(dev, smi, want_profile):
+def image_cell(dev):
+    """The 256x256 cell: (scene, the scene on the card, config)."""
+    size = IMAGE["size"]
+    scene = make_sphere_scene(size, size, **SPHERES)
+    cfg = RenderConfig(mode="cpu", quantize="smooth", backend="cuda",
+                       ray_chunk=TRAIN["ray_chunk"], diff_max_depth=IMAGE["depth"],
+                       remat=True)
+    return scene, scene.to(dev), cfg
+
+
+def check_image_grad(dev, smi, want_profile, cell):
     """The 256x256 cell with all 13 groups requiring grad: the captured call
     (first a capture, then replays) and the eager one (`plan=False`) in
     turns, each turn with new parameter values: images bit-equal, gradients
     within the tolerance, two graph replays and no host sync per replayed
-    call; then the stale-forward error. With `want_profile` one captured
-    and one eager call are traced. Returns the launches of one replayed
-    call."""
+    call. With `want_profile` one captured and one eager call are traced.
+    Returns the launches of one replayed call and the eager calls."""
     size, depth = IMAGE["size"], IMAGE["depth"]
-    scene = make_sphere_scene(size, size, **SPHERES)
-    scene_d = scene.to(dev)
-    cfg = RenderConfig(mode="cpu", quantize="smooth", backend="cuda",
-                       ray_chunk=TRAIN["ray_chunk"], diff_max_depth=depth, remat=True)
+    scene, scene_d, cfg = cell
     n_chunks = size * size * 4 // TRAIN["ray_chunk"]
     addr = cached_block(dev)
     runs = {"graph": [], "eager": []}
@@ -1798,7 +1813,7 @@ def check_image_grad(dev, smi, want_profile):
                                  f"({int((g[0] != e[0]).any(-1).sum())} pixels differ)")
         worst = max(worst, require_close_grads(g[1], e[1], f"render_image 256x256, "
                                                f"turn {turn}"))
-    check_image(runs["graph"][0][0], size, size)
+    check_image(runs["graph"][0][0][0], size, size)
     for k in ("vertices", "normals", "kd", "lights_rgb", "cam_fov"):
         if not bool(runs["graph"][-1][1][k].any()):
             raise AssertionError(f"render_image 256x256: the gradient of {k} is all zero")
@@ -1817,7 +1832,7 @@ def check_image_grad(dev, smi, want_profile):
     tg = [r[2] for r in runs["graph"]]
     te = [r[2] for r in runs["eager"]]
     ms, ms_e = float(np.median(tg[1:])), float(np.median(te))
-    warm = {k: n for k, n in plan.warmup_launches.items() if n}
+    warm = {k: n for k, n in plan.slots[0].warmup_launches.items() if n}
     say("image", f"render_image, spheres {size}x{size} ({scene.n_triangles} tris, "
         f"{n_chunks} chunks, depth {depth}), cuda, remat=True, all 13 groups "
         f"requiring grad, mean(image).backward(): 3 captured calls (the first the "
@@ -1833,8 +1848,8 @@ def check_image_grad(dev, smi, want_profile):
         f"backward replays: 2 graph launches per replayed call; host syncs counted in "
         f"the replayed calls {syncs}, in the capturing call {runs['graph'][0][4]}, in "
         f"the eager calls {[r[4] for r in runs['eager']]}; kernel launches per replayed "
-        f"call {per_call} (forward graph {plan.forward_launches}, backward graph "
-        f"{plan.backward_launches}, warm-up {warm}), eager {eager_counts}; {smi}")
+        f"call {per_call} (forward graph {plan.slots[0].forward_launches}, backward graph "
+        f"{plan.slots[0].backward_launches}, warm-up {warm}), eager {eager_counts}; {smi}")
     if want_profile:
         params = image_params(scene, 4, dev)
         for plan_arg, what, unprofiled in ((None, "captured (a forward and a backward "
@@ -1844,23 +1859,168 @@ def check_image_grad(dev, smi, want_profile):
                          f"render_image {size}x{size}, remat=True, all 13 groups, "
                          f"forward + backward, {what}", unprofiled)
 
-    # the stale forward: two forward passes of the plan, then the first's backward
-    a = render_image(insert_params(scene_d, image_params(scene, 5, dev)), cfg, device=dev)
-    b = render_image(insert_params(scene_d, image_params(scene, 6, dev)), cfg, device=dev)
-    try:
-        a.mean().backward()
-    except RuntimeError as e:
-        if "plan=False" not in str(e):
-            raise
-        stale = str(e)
-    else:
-        raise AssertionError("render_image: the backward pass of a stale forward pass "
-                             "did not raise on the card")
-    b.mean().backward()
-    torch.cuda.synchronize()
-    say("image", f"a second forward pass of the plan, then the first image's backward: "
-        f"RuntimeError ({stale[:90]}...); the newest image's backward ran")
-    return per_call
+    return per_call, runs["eager"]
+
+
+# the second view of the 256x256 cell: the camera moved and turned, as in
+# `moved_scene`
+VIEW_B = {"cam_position": 0.05, "cam_u": 0.01}
+
+
+def view_b(params):
+    """The second view's parameters, computed from the first's."""
+    return {**params, **{k: params[k] + d for k, d in VIEW_B.items()}}
+
+
+def busy_slots(plan) -> list:
+    return [slot.busy for slot in plan.slots]
+
+
+def check_image_slots(dev, smi, cell, per_call, eager_runs):
+    """Two views of the 256x256 cell through its plan, `(a.mean() +
+    b.mean()).backward()`: the captured call (slot 0 replayed, slot 1
+    captured, then both replayed) and its eager twin (`plan=False`) in two
+    turns: images bit-equal, gradients within the tolerance, four graph
+    replays, twice one view's launches and no host sync per replayed call.
+    Then the two views' backward passes in reverse order, equal to the
+    turn's eager twin, and a 3-step loop (`loss.backward()` per step) that
+    captures nothing new, equal to `check_image_grad`'s eager calls."""
+    scene, scene_d, cfg = cell
+    plan = image_graph.image_plans()[-1]
+    before = (plan.captures, plan.replays, plan.backward_replays)
+    runs = {"graph": [], "eager": []}
+    turns = []
+    for turn, order in enumerate((("graph", "eager"), ("eager", "graph"))):
+        turns.append(image_params(scene, 10 + turn, dev))
+        for which in order:
+            p = {k: v.detach().clone().requires_grad_() for k, v in turns[-1].items()}
+            runs[which].append(image_call(scene_d, p, cfg,
+                                          None if which == "graph" else False,
+                                          views=(None, view_b)))
+    if image_graph.image_plans()[-1] is not plan or len(plan.slots) != 2:
+        raise AssertionError(f"render_image, two views: {len(plan.slots)} slots, not 2")
+    counters = (plan.captures - before[0], plan.replays - before[1],
+                plan.backward_replays - before[2])
+    if counters != (1, 3, 4) or busy_slots(plan) != [False, False]:
+        raise AssertionError(f"render_image, two views: captures, forward and backward "
+                             f"replays {counters} (expected (1, 3, 4)), slots busy "
+                             f"{busy_slots(plan)}")
+    worst = 0.0
+    for turn, (g, e) in enumerate(zip(runs["graph"], runs["eager"])):
+        if not torch.equal(g[0], e[0]) or torch.equal(g[0][0], g[0][1]):
+            raise AssertionError(f"render_image, two views, turn {turn}: the captured "
+                                 "images are not bit-equal to the eager ones, or the "
+                                 "views are equal")
+        worst = max(worst, require_close_grads(g[1], e[1], f"render_image, two views, "
+                                               f"turn {turn}"))
+    replayed = runs["graph"][1]
+    if replayed[3] != {k: 2 * n for k, n in per_call.items()} or replayed[4]:
+        raise AssertionError(f"render_image, two views: launches {replayed[3]} (one view "
+                             f"{per_call}), {replayed[4]} host syncs in the replayed call")
+    second = plan.slots[1]
+
+    # the reverse order: forward a, forward b, backward b, backward a
+    p = {k: v.detach().clone().requires_grad_() for k, v in turns[1].items()}
+    images = [render_image(insert_params(scene_d, q), cfg, device=dev)
+              for q in (p, view_b(p))]
+    order = [busy_slots(plan)]
+    for img in reversed(images):
+        img.mean().backward()
+        order.append(busy_slots(plan))
+    if order != [[True, True], [True, False], [False, False]]:
+        raise AssertionError(f"render_image, reverse order: slots busy {order}")
+    if not torch.equal(torch.stack([i.detach() for i in images]), runs["eager"][1][0]):
+        raise AssertionError("render_image, reverse order: images not bit-equal")
+    reverse = require_close_grads({k: v.grad for k, v in p.items()}, runs["eager"][1][1],
+                                  "render_image, two views, backward in reverse order")
+
+    # a training loop: one slot, nothing captured
+    loop_ms, loop_worst = [], 0.0
+    for step, (_, want, *_) in enumerate(eager_runs):
+        p = image_params(scene, step, dev)
+        _, ms = wall_ms(lambda: render_image(insert_params(scene_d, p), cfg,
+                                             device=dev).mean().backward())
+        loop_ms.append(ms)
+        loop_worst = max(loop_worst, require_close_grads(
+            {k: v.grad for k, v in p.items()}, want, f"render_image loop, step {step}"))
+        if busy_slots(plan) != [False, False]:
+            raise AssertionError(f"render_image loop, step {step}: slots busy "
+                                 f"{busy_slots(plan)}")
+    if plan.captures != before[0] + 1 or len(plan.slots) != 2:
+        raise AssertionError(f"render_image loop: {plan.captures} captures, "
+                             f"{len(plan.slots)} slots")
+    tg = [r[2] for r in runs["graph"]]
+    te = [r[2] for r in runs["eager"]]
+    say("image", f"render_image, two views of the 256x256 cell (the camera moved "
+        f"{VIEW_B['cam_position']} and turned), one plan, (a.mean() + "
+        f"b.mean()).backward(): captured calls in turns with their eager twins "
+        f"(plan=False), new parameters each turn: images bit-equal, gradients within "
+        f"{worst:.3e} of a group's largest entry; {len(plan.slots)} slots; the second "
+        f"slot's capture {second.capture_ms:.1f} ms (warm-up {second.warmup_ms:.1f} ms), "
+        f"{second.held_bytes / 2**20:.1f} MiB (slot 0 "
+        f"{plan.slots[0].held_bytes / 2**20:.1f} MiB, the plan "
+        f"{plan.held_bytes / 2**20:.1f} MiB); ms per two-view call graph "
+        f"{[round(t, 1) for t in tg]} (the first captures slot 1), eager "
+        f"{[round(t, 1) for t in te]}: replayed {tg[1]:.1f} against eager "
+        f"{float(np.mean(te)):.1f}; 4 graph replays and {replayed[4]} host syncs "
+        f"counted in the replayed call (capturing call {runs['graph'][0][4]}, eager "
+        f"{[r[4] for r in runs['eager']]}); kernel launches per replayed call "
+        f"{replayed[3]}, eager {runs['eager'][-1][3]}; {smi}")
+    say("image", f"the two views' backward passes in reverse order: slots busy "
+        f"{order}, images bit-equal and gradients within {reverse:.3e} of the eager "
+        f"twin's; a {len(loop_ms)}-step loop (render_image(...).mean().backward()): "
+        f"nothing captured (the plan's captures stay {plan.captures}, its slots "
+        f"{len(plan.slots)}), "
+        f"gradients within {loop_worst:.3e} of the eager calls', ms per step "
+        f"{[round(t, 1) for t in loop_ms]}")
+
+
+def check_slots_beyond_max(dev, smi):
+    """On the 16x16 plan of `check_gradient_against_plain` (backend "cuda",
+    depth 2, leaves on the CPU), `MAX_SLOTS + 1` outstanding images, each
+    with the camera moved further: `MAX_SLOTS` slots, the last call eager
+    (`eager_calls` 1), the loss (the sum of their means) bit-equal to the
+    eager twin's and its gradients within the tolerance."""
+    scene = make_sphere_scene(16, 16, **SPHERES)
+    cfg = RenderConfig(quantize="smooth", backend="cuda", diff_max_depth=2)
+    plan = next((q for q in image_graph.image_plans() if q.cfg == cfg and q.grad), None)
+    if plan is None or len(plan.slots) != 1:
+        raise AssertionError("render_image: the 16x16 plan of the gradient check is "
+                             "not cached with one slot")
+    n = image_graph.MAX_SLOTS + 1
+    runs = {}
+    for which in (None, False):
+        p = {k: v.detach().clone().requires_grad_()
+             for k, v in extract_params(scene).items()}
+        views = [{**p, "cam_position": p["cam_position"] + 0.01 * i} for i in range(n)]
+
+        def call():
+            loss = sum(render_image(insert_params(scene, q), cfg, device=dev,
+                                    plan=which).mean() for q in views)
+            busy = busy_slots(plan)
+            loss.backward()
+            return loss.detach(), busy
+
+        (loss, busy), ms = wall_ms(call)
+        runs[which] = (loss, {k: v.grad.to(dev) for k, v in p.items()}, ms, busy)
+    if not torch.equal(runs[None][0], runs[False][0]):
+        raise AssertionError("render_image beyond MAX_SLOTS: the loss is not bit-equal "
+                             "to the eager twin's")
+    worst = require_close_grads(runs[None][1], runs[False][1],
+                                "render_image beyond MAX_SLOTS")
+    if (len(plan.slots), plan.eager_calls, plan.captures) != (n - 1, 1, n - 1) or (
+            runs[None][3] != [True] * (n - 1) or any(busy_slots(plan))):
+        raise AssertionError(f"render_image beyond MAX_SLOTS: {len(plan.slots)} slots, "
+                             f"{plan.eager_calls} eager calls, {plan.captures} captures, "
+                             f"busy {runs[None][3]} then {busy_slots(plan)}")
+    new = plan.slots[1:]
+    say("image", f"render_image, spheres 16x16, depth 2, {n} outstanding images of one "
+        f"plan (MAX_SLOTS {image_graph.MAX_SLOTS}): {len(plan.slots)} slots, "
+        f"{plan.eager_calls} call rendered eagerly, the loss bit-equal to the eager "
+        f"twin's, gradients within {worst:.3e}; ms {runs[None][2]:.1f} (capturing "
+        f"{len(new)} slots: {float(np.mean([s.capture_ms for s in new])):.1f} ms and "
+        f"{float(np.mean([s.held_bytes for s in new])) / 2**20:.1f} MiB each), eager "
+        f"twin {runs[False][2]:.1f}; {smi}")
 
 
 def check_image_gpu_mode(dev, smi):
@@ -1888,7 +2048,7 @@ def check_image_gpu_mode(dev, smi):
     if (plan.captures, plan.replays, plan.last_call, runs[2][4]) != (1, 1, "replay", 0):
         raise AssertionError(f"render_image, GPU mode: {plan.captures} captures, "
                              f"{plan.replays} replays, {runs[2][4]} host syncs")
-    check_image(runs[2][0], n, n)
+    check_image(runs[2][0][0], n, n)
     say("image", f"render_image, GPU mode, spheres {n}x{n} x{cfg.aliasing}, "
         f"max_bounce {cfg.max_bounce}, all groups requiring grad: captured and "
         f"replayed calls bit-equal to the eager call, gradients within the tolerance "
@@ -1979,8 +2139,11 @@ def run_image_phase(dev, smi, renderer, ref_img, want_profile):
     """The `[image]` phase: returns the kernel launches of one replayed
     forward+backward call at 256x256."""
     t0 = time.perf_counter()
+    check_slots_beyond_max(dev, smi)
     image_graph.clear_image_plans()
-    launches = check_image_grad(dev, smi, want_profile)
+    cell = image_cell(dev)
+    launches, eager_runs = check_image_grad(dev, smi, want_profile, cell)
+    check_image_slots(dev, smi, cell, launches, eager_runs)
     check_image_gpu_mode(dev, smi)
     check_image_frame_program(renderer, ref_img, smi)
     image_graph.clear_image_plans()

@@ -530,11 +530,12 @@ def render_image(scene: Scene, cfg: RenderConfig | None = None,
     (`image_graph_blocker` says why). `plan`: None follows
     `uses_image_graph`; True takes the plan on the CPU too, where it runs
     uncaptured (raising `ValueError` where a blocker names a reason); False
-    renders eagerly (the counterpart of `jax.disable_jit`). One difference
-    from JAX: a plan's second forward pass overwrites what the first one's
-    backward pass needs, so the backward of any image but the newest of its
-    plan raises `RuntimeError` (call backward before rendering again, or
-    pass `plan=False`)."""
+    renders eagerly (the counterpart of `jax.disable_jit`). With grad a
+    plan keeps one slot (buffers, graphs, memory pool) per outstanding
+    image, so several images of one plan are differentiated together or in
+    any order, as under `jax.grad`; beyond `image_graph.MAX_SLOTS`
+    outstanding images a call renders eagerly (counted in the plan's
+    `eager_calls`)."""
     cfg = cfg or RenderConfig(quantize="smooth")
     device = resolve_device(device)
     scene = scene.to(device)
@@ -545,9 +546,11 @@ def render_image(scene: Scene, cfg: RenderConfig | None = None,
     if plan and blocker:
         raise ValueError(f"plan=True, but this render_image call cannot be "
                          f"captured: {blocker}")
-    if not (uses_image_graph(cfg, device, grad) if plan is None else plan):
-        return _render_frame(scene, cfg, depth)
-    return image_plan(scene, cfg, depth, grad, IMAGE_PROGRAM).image(scene)
+    if uses_image_graph(cfg, device, grad) if plan is None else plan:
+        image = image_plan(scene, cfg, depth, grad, IMAGE_PROGRAM).image(scene)
+        if image is not None:
+            return image
+    return _render_frame(scene, cfg, depth)
 
 
 def render(input_path: str, output_path: str, cfg: RenderConfig = RenderConfig(),

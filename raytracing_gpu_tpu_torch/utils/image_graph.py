@@ -30,34 +30,46 @@ takes which path follows the JAX package's strategy (`cfg.resolve_unroll()`):
 - grad needed with the while-loop strategy, and backend "torch" with
   partitioning, stay eager (`image_graph_blocker` says why).
 
-The first call of a plan is a real forward (and backward) pass over its
+The buffers and the graphs over them form a slot (`ImageSlot`). A plan
+without grad has one: its image is a tensor of its own once the call
+returns. A plan that needs grad keeps one slot per outstanding forward
+pass, because the backward pass reads what its forward pass saved in its
+slot's buffers and pool: a forward pass takes the lowest free slot, or
+captures a new one (its own buffers, gradient buffers, graphs and memory
+pool) while the plan has fewer than `MAX_SLOTS`. A slot is busy from its
+forward pass until its image's autograd node is freed or its backward pass
+ran without `retain_graph` (a zero-size token saved by the node is then
+freed, and its finalizer frees the slot). So every image of a plan has its
+own gradients, in any order, as under `jax.grad` of the JAX package's pure
+render; a training loop (`render_image(...).mean().backward()` per step)
+reuses one slot. Beyond `MAX_SLOTS` outstanding images a call renders
+eagerly (`_render_frame`, the `plan=False` path, the same kernels), counted
+in `eager_calls`. Each slot holds its memory for the plan's life (at 256²
+with `remat` about 432 MiB on the card).
+
+The first call of a slot is a real forward (and backward) pass over its
 buffers, run eagerly on a side stream with any host sync raising; the
 capture follows, and the call then replays the forward graph for its
 image. Plans are kept by configuration, depth, device, the scene's
 structure, which of its tensors require grad and whether grad is needed
 (`image_plan`), at most `MAX_PLANS` of them, least recently used dropped
-first (each holds a graph pool): the counterpart of jit's cache.
-`clear_image_plans()` drops them all.
-
-One way this differs from JAX, whose functions are pure: a plan holds one
-set of saved tensors, so a second forward replay overwrites what the
-first image's backward pass needs. The backward pass of any image but the
-newest of its plan raises `RuntimeError` and never returns numbers.
-`backward(retain_graph=True)` twice on the newest image replays the
-backward graph twice; `create_graph=True` raises (the captured backward
-pass is once-differentiable).
+first (each holds its slots' graph pools): the counterpart of jit's cache.
+`clear_image_plans()` drops them all. `backward(retain_graph=True)` twice
+replays an image's backward graph twice; `create_graph=True` raises (the
+captured backward pass is once-differentiable).
 
 On the CPU nothing is captured: every call runs the same code over the
-same buffers, uncaptured (the stale-forward error too), so the CPU tests
-run it. A warm-up or a capture that fails raises, naming the step; nothing
-falls back to the eager path. Launch counts stay true: the warm-up launches
-for real, and each replay adds the launches its capture recorded.
+same slots' buffers, uncaptured, so the CPU tests run it. A warm-up or a
+capture that fails raises, naming the step: nothing falls back to the
+eager path on a failure. Launch counts stay true: the warm-up launches for real, and
+each replay adds the launches its capture recorded.
 """
 
 from __future__ import annotations
 
 import collections
 import time
+import weakref
 from typing import Callable, NamedTuple
 
 import torch
@@ -72,11 +84,7 @@ from raytracing_gpu_tpu_torch.utils.frame_graph import (
 from raytracing_gpu_tpu_torch.utils.step_graph import cloned, structure, tensor_leaves
 
 MAX_PLANS = 4
-
-STALE = ("render_image: this image's forward pass was overwritten by a later call "
-         "of its plan (the same configuration, depth, scene structure and "
-         "grad-requiring tensors) before its backward pass ran: call backward "
-         "before rendering again, or pass plan=False")
+MAX_SLOTS = 8
 
 
 class ImageProgram(NamedTuple):
@@ -119,140 +127,201 @@ def uses_image_graph(cfg, device, grad: bool) -> bool:
             and image_graph_blocker(cfg, grad) is None)
 
 
+class ImageSlot:
+    """One set of a plan's buffers and the graphs captured over them: a copy
+    of every tensor of the scene (bool and int ones too), the gradients of
+    those that require grad and the incoming gradient of the image, the
+    forward and backward graphs and their memory pool (see the module
+    docstring).
+
+    `busy` while an image of its forward pass may still be differentiated;
+    `uses` counts its forward passes (an image's backward pass checks that
+    its slot has run no forward pass since its own); after its capture, `capture_ms` (the slot's construction, warm-up and
+    captures; `warmup_ms` the warm-up alone), `held_bytes` (memory the card
+    reserved over them: the buffers and the pool, with the image's whole
+    autograd graph when grad is needed; nothing the allocator had cached
+    is released), `warmup_launches`, `forward_launches` and
+    `backward_launches` (kernel launches of the warm-up and of one replay
+    of each graph)."""
+
+    def __init__(self, scene, grad: bool):
+        self._t0 = time.perf_counter()
+        self._reserved = reserved_bytes(scene.device)
+        self.busy = False
+        self.uses = 0
+        self.capture_ms = self.warmup_ms = 0.0
+        self.held_bytes = 0
+        self.warmup_launches = dict.fromkeys(ck.LAUNCHES, 0)
+        self.forward_launches = dict(self.warmup_launches)
+        self.backward_launches = dict(self.warmup_launches)
+        self.graphs = None
+        self.image = self.grads = None
+        with torch.no_grad():
+            self.scene = cloned(scene)
+            self.buffers = tensor_leaves(self.scene)
+            for buf, t in zip(self.buffers, tensor_leaves(scene)):
+                buf.requires_grad_(grad and t.requires_grad)
+            self.grad_bufs = [b for b in self.buffers if b.requires_grad]
+            cam = scene.camera
+            self.grad_image = (torch.zeros((cam.height, cam.width, 3), device=scene.device)
+                               if grad else None)
+
+
 class ImagePlan:
     """`render_image` of one configuration, depth and scene structure as
-    CUDA graphs and their replays (see the module docstring). Built from
-    the scene of its first call; captured on that scene's device when it
-    is a card, run uncaptured on the CPU.
+    CUDA graphs and their replays, over one slot per outstanding forward
+    pass (see the module docstring). Built from the scene of its first
+    call; captured on that scene's device when it is a card, run uncaptured
+    on the CPU.
 
-    After each call: `last_call` ("eager" on the CPU, "captured" for the
-    warm-up and capture, "replay"), `captures`, `replays` and
-    `backward_replays` (of the forward and the backward graph),
-    `generation` (forward passes so far); after a capture, `capture_ms`
-    (the plan's construction, warm-up and captures; `warmup_ms` the warm-up
-    alone),
-    `held_bytes` (memory the card reserved over them: the buffers, the
-    graphs' pools, with the image's whole autograd graph when grad is
-    needed; nothing the allocator had cached is released),
-    `warmup_launches`, `forward_launches` and `backward_launches` (kernel
-    launches of the warm-up and of one replay of each graph; a frame
-    program's launches are its `FramePlan`'s, counted at each frame)."""
+    After each call: `last_call` ("eager" on the CPU and for a call beyond
+    `MAX_SLOTS`, "captured" for a slot's warm-up and capture, "replay"),
+    `slots` (its `ImageSlot`s, in the order they were made), `captures`
+    (slots captured), `replays` and `backward_replays` (of the forward and
+    the backward graphs), `generation` (forward passes over the slots so
+    far), `eager_calls` (calls beyond `MAX_SLOTS` outstanding images), and
+    `capture_ms`, `warmup_ms` and `held_bytes`, the sums of the slots' (a
+    frame program's capture falls in its one slot's). A frame program's
+    launches are its `FramePlan`'s, counted at each frame."""
 
     def __init__(self, scene, cfg, depth: int, grad: bool, program: ImageProgram):
         self.cfg, self.depth, self.grad = cfg, depth, grad
         self.device = scene.device
         self.frame_program = not cfg.resolve_unroll()
         self._program = program
-        self._t0 = time.perf_counter()
-        self._reserved = reserved_bytes(self.device)
         self.last_call = None
-        self.captures = self.replays = self.backward_replays = self.generation = 0
-        self.capture_ms = self.warmup_ms = 0.0
-        self.held_bytes = 0
-        self.warmup_launches = dict.fromkeys(ck.LAUNCHES, 0)
-        self.forward_launches = dict(self.warmup_launches)
-        self.backward_launches = dict(self.warmup_launches)
-        self._graphs = None
-        self._image = self._grads = None
-        with torch.no_grad():
-            self._scene = cloned(scene)
-            self._buffers = tensor_leaves(self._scene)
-            for buf, t in zip(self._buffers, tensor_leaves(scene)):
-                buf.requires_grad_(grad and t.requires_grad)
-            self._grad_bufs = [b for b in self._buffers if b.requires_grad]
-            cam = scene.camera
-            self._grad_image = (torch.zeros((cam.height, cam.width, 3), device=self.device)
-                                if grad else None)
-            if self.frame_program:
-                # the pack and the basis the frame graph reads, refreshed in
-                # place by every call (`_run_forward`)
-                self._pack, self._basis = program.inputs(self._scene, cfg)
-                self._frame = program.frame(self._scene, cfg, depth, self._pack,
-                                            self._basis)
+        self.captures = self.replays = self.backward_replays = 0
+        self.generation = self.eager_calls = 0
+        self.slots = [ImageSlot(scene, grad)]
+        if self.frame_program:
+            # the pack and the basis the frame graph reads, refreshed in
+            # place by every call (`_run_forward`)
+            with torch.no_grad():
+                self._pack, self._basis = program.inputs(self.slots[0].scene, cfg)
+                self._frame = program.frame(self.slots[0].scene, cfg, depth,
+                                            self._pack, self._basis)
 
-    def image(self, scene) -> torch.Tensor:
+    @property
+    def capture_ms(self) -> float:
+        return sum(s.capture_ms for s in self.slots)
+
+    @property
+    def warmup_ms(self) -> float:
+        return sum(s.warmup_ms for s in self.slots)
+
+    @property
+    def held_bytes(self) -> int:
+        return sum(s.held_bytes for s in self.slots)
+
+    def image(self, scene) -> torch.Tensor | None:
         """The image of `scene` (on the plan's device, of its structure),
-        recorded by autograd when the plan's grad is needed."""
+        recorded by autograd when the plan's grad is needed, through the
+        lowest free slot; None beyond `MAX_SLOTS` outstanding images (the
+        call counted in `eager_calls`: the caller renders it eagerly)."""
         leaves = tensor_leaves(scene)
-        if self.grad:
-            return _GraphedImage.apply(self, *leaves)
-        return self.forward(leaves)
+        if not self.grad:
+            return self.forward(self.slots[0], leaves)
+        slot = self._free_slot(scene)
+        if slot is None:
+            self.last_call = "eager"
+            self.eager_calls += 1
+            return None
+        return _GraphedImage.apply(self, slot, *leaves)
 
-    # ---- the passes over the buffers ---------------------------------------
+    # ---- the slots ----------------------------------------------------------
 
-    def forward(self, leaves) -> torch.Tensor:
-        """Copy the scene's tensors into the buffers, run the forward pass
-        over them (the first call on a card: warm-up, capture, replay) and
-        return the image, a tensor of its own."""
+    def _free_slot(self, scene) -> ImageSlot | None:
+        """The lowest free slot; a new one while there are fewer than
+        `MAX_SLOTS`; else None. A slot is freed by a finalizer, which may
+        run on autograd's device thread or inside a garbage collection on
+        this one: a flag is set or read in one step, and nothing waits on
+        a lock the finalizer would need."""
+        slot = next((s for s in self.slots if not s.busy), None)
+        if slot is None and len(self.slots) < MAX_SLOTS:
+            slot = ImageSlot(scene, self.grad)
+            self.slots.append(slot)
+        return slot
+
+    def _hold(self, slot: ImageSlot, token: torch.Tensor) -> None:
+        """Mark `slot` busy until `token` (saved by its image's autograd
+        node) is freed."""
+        slot.busy = True
+        weakref.finalize(token, _release, slot)
+
+    # ---- the passes over a slot's buffers ------------------------------------
+
+    def forward(self, slot: ImageSlot, leaves) -> torch.Tensor:
+        """Copy the scene's tensors into the slot's buffers, run the forward
+        pass over them (the slot's first call on a card: warm-up, capture,
+        replay) and return the image, a tensor of its own."""
         with torch.no_grad(), _current(self.device):
-            for buf, t in zip(self._buffers, leaves):
+            for buf, t in zip(slot.buffers, leaves):
                 buf.copy_(t)
+            slot.uses += 1
             if self.device.type != "cuda":
                 self.last_call = "eager"
-                self._run_forward()
+                self._run_forward(slot)
             else:
-                if self._graphs is None:
+                if slot.graphs is None:
                     self.last_call = "captured"
-                    self._warm_up_and_capture()
+                    self._warm_up_and_capture(slot)
                 else:
                     self.last_call = "replay"
                     self.replays += 1
-                self._graphs[0].replay()
-                ck.add_launches(self.forward_launches)
+                slot.graphs[0].replay()
+                ck.add_launches(slot.forward_launches)
             self.generation += 1
             if self.frame_program:
                 return self._frame.render()
-            return self._image.clone()
+            return slot.image.clone()
 
-    def backward(self, generation: int, grad_image) -> list:
-        """The gradients of the buffers that require grad (None where the
-        image does not reach one), copies of their own, for the image of
-        forward pass `generation`, which must be the newest."""
-        if generation != self.generation:
-            raise RuntimeError(STALE)
+    def backward(self, slot: ImageSlot, grad_image) -> list:
+        """The gradients of the slot's buffers that require grad (None where
+        the image does not reach one), copies of their own, for the image
+        of the slot's last forward pass."""
         with torch.no_grad(), _current(self.device):
-            self._grad_image.copy_(grad_image)
-            if self._graphs is None:
-                self._run_backward()
+            slot.grad_image.copy_(grad_image)
+            if slot.graphs is None:
+                self._run_backward(slot)
             else:
-                self._graphs[1].replay()
-                ck.add_launches(self.backward_launches)
+                slot.graphs[1].replay()
+                ck.add_launches(slot.backward_launches)
                 self.backward_replays += 1
-            return [None if g is None else g.clone() for g in self._grads]
+            return [None if g is None else g.clone() for g in slot.grads]
 
-    def _run_forward(self):
-        """What the forward graph holds: the image over the buffers (with
-        autograd recording when grad is needed), or a frame program's
+    def _run_forward(self, slot: ImageSlot):
+        """What the forward graph holds: the image over the slot's buffers
+        (with autograd recording when grad is needed), or a frame program's
         inputs rebuilt into the tensors its graph reads."""
         if self.frame_program:
-            pack, basis = self._program.inputs(self._scene, self.cfg)
+            pack, basis = self._program.inputs(slot.scene, self.cfg)
             for buf, new in zip(_flat(self._pack, self._basis), _flat(pack, basis)):
                 buf.copy_(new)
             return
         with torch.set_grad_enabled(self.grad):
-            self._image = self._program.image(self._scene, self.cfg, self.depth)
+            slot.image = self._program.image(slot.scene, self.cfg, self.depth)
 
-    def _run_backward(self):
-        """What the backward graph holds: the gradients of the last forward
-        pass's image against `_grad_image`, its graph kept for the next
-        backward pass of the same image."""
-        self._grads = torch.autograd.grad(self._image, self._grad_bufs, self._grad_image,
-                                          retain_graph=True, allow_unused=True)
+    def _run_backward(self, slot: ImageSlot):
+        """What the backward graph holds: the gradients of the slot's last
+        forward pass's image against its `grad_image`, its graph kept for
+        the next backward pass of the same image."""
+        slot.grads = torch.autograd.grad(slot.image, slot.grad_bufs, slot.grad_image,
+                                         retain_graph=True, allow_unused=True)
 
     # ---- warm-up and capture on the card -----------------------------------
 
-    def _warm_up_and_capture(self):
+    def _warm_up_and_capture(self, slot: ImageSlot):
         """The passes eager on a side stream of the plan's device with any
         host sync raising, then each captured into a CUDA graph on the same
-        stream (which runs nothing), all into one memory pool: forward
-        first, so that the backward capture allocates nothing over what the
-        forward pass saved."""
+        stream (which runs nothing), all into the slot's own memory pool:
+        forward first, so that the backward capture allocates nothing over
+        what the forward pass saved."""
         dev = self.device
         passes = [("forward pass" if not self.frame_program
                    else "pack and camera basis (the frame program's inputs)",
-                   self._run_forward)]
+                   lambda: self._run_forward(slot))]
         if self.grad:
-            passes.append(("backward pass", self._run_backward))
+            passes.append(("backward pass", lambda: self._run_backward(slot)))
         what = " and ".join(name for name, _ in passes)
         t0 = time.perf_counter()
         side = torch.cuda.Stream(dev)
@@ -268,9 +337,11 @@ class ImagePlan:
                                    f"capture failed: {e}") from e
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
-        self.warmup_ms = (time.perf_counter() - t0) * 1e3
-        self.warmup_launches = {k: ck.LAUNCHES[k] - before[k] for k in before}
-        self._image = self._grads = None  # the warm-up's graph and gradients
+        slot.warmup_ms = (time.perf_counter() - t0) * 1e3
+        slot.warmup_launches = {k: ck.LAUNCHES[k] - before[k] for k in before}
+        slot.image = slot.grads = None  # the warm-up's graph and gradients
+        # a pool per slot: a slot's saved tensors and `SweepTape`s stay where
+        # its own graphs put them, whatever the other slots replay
         pool = torch.cuda.graph_pool_handle()
         graphs, counts = [], []
         for name, run in passes:
@@ -283,14 +354,18 @@ class ImagePlan:
                                        f"CUDA graph failed: {e}") from e
             graphs.append(graph)
             counts.append(recorded)
-        self._graphs = graphs
-        self.forward_launches = counts[0]
+        slot.graphs = graphs
+        slot.forward_launches = counts[0]
         if self.grad:
-            self.backward_launches = counts[1]
+            slot.backward_launches = counts[1]
         torch.cuda.synchronize(dev)
-        self.held_bytes = reserved_bytes(dev) - self._reserved
-        self.capture_ms = (time.perf_counter() - self._t0) * 1e3
+        slot.held_bytes = reserved_bytes(dev) - slot._reserved
+        slot.capture_ms = (time.perf_counter() - slot._t0) * 1e3
         self.captures += 1
+
+
+def _release(slot: ImageSlot) -> None:
+    slot.busy = False
 
 
 def _flat(pack, basis) -> list:
@@ -300,13 +375,23 @@ def _flat(pack, basis) -> list:
 
 class _GraphedImage(torch.autograd.Function):
     """A plan's image as one autograd node over the scene's tensors: the
-    forward pass through `ImagePlan.forward`, the backward pass through
-    `ImagePlan.backward` (see the module docstring)."""
+    forward pass through `ImagePlan.forward` over a slot, the backward pass
+    through `ImagePlan.backward` over the same slot (see the module
+    docstring). The node saves a zero-size token whose finalizer frees the
+    slot: autograd drops it after a backward pass without `retain_graph`,
+    and with the node. A saved-tensor hook that keeps a copy of the token
+    (`torch.autograd.graph.save_on_cpu`, non-reentrant checkpointing)
+    frees the slot as the forward pass returns; should a later forward
+    pass then take that slot, this image's backward pass raises rather
+    than read the later image's saved tensors."""
 
     @staticmethod
-    def forward(ctx, plan, *leaves):
-        image = plan.forward(leaves)
-        ctx.plan, ctx.generation = plan, plan.generation
+    def forward(ctx, plan, slot, *leaves):
+        image = plan.forward(slot, leaves)
+        token = torch.empty(0)
+        ctx.save_for_backward(token)
+        plan._hold(slot, token)
+        ctx.plan, ctx.slot, ctx.use = plan, slot, slot.uses
         return image
 
     @staticmethod
@@ -315,10 +400,18 @@ class _GraphedImage(torch.autograd.Function):
             raise RuntimeError("render_image: the captured backward pass is "
                                "once-differentiable, so create_graph=True cannot "
                                "be taken through it; pass plan=False")
-        plan = ctx.plan
-        grads = iter(plan.backward(ctx.generation, grad_image))
-        return (None, *(next(grads) if buf.requires_grad else None
-                        for buf in plan._buffers))
+        ctx.saved_tensors  # raises once the token, and with it the slot, is freed
+        slot = ctx.slot
+        if slot.uses != ctx.use:
+            raise RuntimeError(
+                "render_image: this image's slot was freed while the image was "
+                "outstanding and a later forward pass has taken it (a saved-tensor "
+                "hook, such as torch.autograd.graph.save_on_cpu or non-reentrant "
+                "checkpointing, copied the token that holds it); render such "
+                "images with plan=False")
+        grads = iter(ctx.plan.backward(slot, grad_image))
+        return (None, None, *(next(grads) if buf.requires_grad else None
+                              for buf in slot.buffers))
 
 
 _PLANS: collections.OrderedDict = collections.OrderedDict()
@@ -342,6 +435,6 @@ def image_plans() -> list:
 
 
 def clear_image_plans() -> None:
-    """Drop every cached plan (and, once no image refers to it, its graphs
-    and their memory pool)."""
+    """Drop every cached plan (and, once no image refers to it, its slots'
+    graphs and their memory pools)."""
     _PLANS.clear()

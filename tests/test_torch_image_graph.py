@@ -18,8 +18,9 @@ buffers (`plan=True`).
 - the no-grad while-loop path through `FramePlan`'s interpreter over the
   plan's buffers, equal to `SceneRenderer`'s frame with the same steps per
   chunk, also after the camera and the vertices move;
-- the plan cache, the stale-forward error, `retain_graph` and
-  `create_graph`, and which calls take a plan.
+- the plan cache, two outstanding images of one plan (each in its own
+  slot, both differentiated; more in `test_torch_image_slots.py`),
+  `retain_graph` and `create_graph`, and which calls take a plan.
 """
 
 import dataclasses
@@ -349,21 +350,24 @@ def test_grad_and_no_grad_calls_keep_plans_apart(scene):
 
 def test_stale_forward_raises(scene):
     """Two forward passes of one plan, then the first image's backward: it
-    raises, naming the remedy. The newest image's backward still works and
-    equals the eager gradient."""
+    no longer raises (each outstanding image has a slot of its own), and
+    the first image's gradient equals its eager one; the second image's
+    backward after it equals its own."""
     cfg = _cfg()
     p = _own(extract_params(scene))
     first = render_image(insert_params(scene, p), cfg, device="cpu", plan=True)
     moved = _moved(extract_params(scene), 11)
     q = _own(moved)
     second = render_image(insert_params(scene, q), cfg, device="cpu", plan=True)
-    with pytest.raises(RuntimeError, match="call backward before rendering again, or "
-                                           "pass plan=False"):
-        first.mean().backward()
-    assert all(v.grad is None for v in p.values())
+    first.mean().backward()
+    assert all(v.grad is None for v in q.values())
+    _, want = _image_and_grads(scene, cfg, False)
+    _require_close_grads({k: v.grad for k, v in p.items()}, want)
     second.mean().backward()
     _, want = _image_and_grads(scene, cfg, False, moved)
     _require_close_grads({k: v.grad for k, v in q.items()}, want)
+    (plan,) = image_graph.image_plans()
+    assert len(plan.slots) == 2 and plan.generation == 2
 
 
 def test_retain_graph_twice_on_the_newest_image(scene):
