@@ -806,6 +806,9 @@ def check_graph_cell(what, scene, cfg, dev, smi, need, none=(), n_primary=0,
             steps_eager = tuple(counted)
     ((img, tg1, counts, loops), (eimg, te1, ecounts, _), (_, te2, _, _),
      (img2, tg2, counts2, loops2)) = runs
+    with profiling.recording():  # a frame's host syncs are counted while recording
+        graph.render_device()
+    torch.cuda.synchronize()
     f = plan.last_frame
     for name in need:
         if counts[name] <= 0:
@@ -2093,7 +2096,8 @@ def check_image_frame_program(renderer, ref_img, smi):
         if which == "renderer":
             times[which].append(wall_ms(renderer.render_device)[1])
         else:
-            with frame_graph.counted_syncs() as synced:
+            # the frame counts its host syncs while the recorder is on
+            with profiling.recording(), frame_graph.counted_syncs() as synced:
                 again, ms = call(scene_d)
             times[which].append(ms)
             counts = dict(ck.LAUNCHES)
@@ -2204,10 +2208,13 @@ def require_same_scene(got, want, what):
 
 
 def trace_kernels(trace_dir) -> dict:
-    """{kernel name: device events} of the one Chrome trace in `trace_dir`."""
-    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    """{kernel name: device events} of the one torch.profiler Chrome trace in
+    `trace_dir` (`trace.*.json`; the program recorder's is `program.*.json`)."""
+    files = [f for f in os.listdir(trace_dir)
+             if f.startswith("trace.") and f.endswith(".json")]
     if len(files) != 1:
-        raise AssertionError(f"expected one trace file in {trace_dir}, found {files}")
+        raise AssertionError(f"expected one torch.profiler trace in {trace_dir}, "
+                             f"found {os.listdir(trace_dir)}")
     with open(os.path.join(trace_dir, files[0])) as f:
         events = json.load(f)["traceEvents"]
     names = {}
@@ -2307,9 +2314,20 @@ def check_entry(scene, cfg, renderer, ref_img, dev, kind, smi):
                           "fetch_rows_kernel")}
         if not all(ours.values()):
             raise AssertionError(f"the CLI's trace lacks the port's kernels: {ours}")
+        program = [f for f in os.listdir(trace_dir) if f.startswith("program.")]
+        with open(os.path.join(trace_dir, program[0])) as f:
+            recorded = json.load(f)
+        spans = {}
+        for e in recorded["traceEvents"]:
+            if e.get("cat") == "device":
+                spans[e["name"]] = spans.get(e["name"], 0) + 1
+        if not spans.get("sweep") or recorded["otherData"]["dropped"]:
+            raise AssertionError(f"the CLI's program trace: device spans {spans}, "
+                                 f"{recorded['otherData']['dropped']} stamps dropped")
         say("entry", f"CLI --unroll static --profile --time: exit 0, PNG equal, "
             f"{cli_s:.2f} s; its trace holds {sum(kernels.values())} device kernels, "
-            f"the port's {ours}")
+            f"the port's {ours}; the program's trace device spans {spans}, "
+            f"counters {recorded['otherData']['counters']}")
 
         # inspect
         buf = io.StringIO()

@@ -5,8 +5,14 @@
 
 `--device` defaults to cuda and fails when CUDA is not available; only an
 explicit `--device cpu` renders on the CPU (with the kernels' plain versions).
-`--profile DIR` writes a torch.profiler Chrome trace of the render into DIR,
-one file per process.
+`--profile DIR` writes two Chrome traces of the render into DIR, each one
+file per process: torch.profiler's (`trace.*.json`: host calls and the
+kernels it sees) and the program recorder's (`program.*.json`,
+`utils.profiling.recording`: the program's spans, on a host track and a
+device track on the one clock, and the device's idle gaps), which also sees
+inside the frame graph's WHILE bodies, where torch.profiler records nothing:
+the rays, bounce and fold pieces and, in each bounce step, collide (cull,
+sweep), shade (shadow) and update.
 
 Sharded over N * S processes, one per device, rays over N tiles and the
 triangles over S scene shards; rank 0 writes the image:
@@ -66,8 +72,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scene-shards", type=int, default=1,
                    help="shard triangles over S processes (scene axis)")
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="write a torch.profiler Chrome trace of the render to "
-                   "DIR (one file per process)")
+                   help="write two Chrome traces of the render to DIR, one file "
+                   "each per process: torch.profiler's (trace.*.json) and the "
+                   "program recorder's spans, host and device on one clock, "
+                   "bounce steps inside the frame graph included (program.*.json)")
     p.add_argument("--time", action="store_true", help="print render time")
     return p
 
@@ -112,7 +120,10 @@ def main(argv=None) -> int:
     scene = parse_scene(args.input)
     mesh = _sharded_mesh(args) if args.tiles else None
     t0 = time.perf_counter()
-    with profiling.trace(args.profile) if args.profile else contextlib.nullcontext():
+    with contextlib.ExitStack() as profiled:
+        if args.profile:
+            profiled.enter_context(profiling.trace(args.profile))
+            recorder = profiled.enter_context(profiling.recording(args.device))
         if mesh is None:
             img = render_scene(scene, cfg, device=args.device)
         else:
@@ -120,6 +131,8 @@ def main(argv=None) -> int:
 
             img = render_scene_sharded(scene, cfg, mesh, device=args.device)
     dt = time.perf_counter() - t0
+    if args.profile:
+        profiling.write_chrome_trace(recorder.export(), args.profile)
     if _rank() != 0:
         return 0  # every rank holds the image; rank 0 writes it
     if args.output.endswith(".png"):

@@ -41,6 +41,13 @@
 // piece and refuses any other node (host memcpys, host nodes, events,
 // allocations) before it assembles anything.
 //
+// `stamp_kernel`, beside them, is the program recorder's device clock
+// (utils/profiling.py): one thread that writes (tag, %globaltimer) into the
+// next entry of a preallocated buffer. A span's two stamps are launched on
+// the stream of the work they enclose, so a stamp captured with a piece
+// replays inside the WHILE bodies, where no profiler sees. An entry past the
+// buffer's capacity is dropped (the cursor still counts it), never wrapped.
+//
 // C interface (loaded with ctypes): each function returns a cudaError_t as
 // an int; the assembly also writes a message naming the step that failed.
 
@@ -104,6 +111,22 @@ __global__ void chunk_advance_kernel(cudaGraphConditionalHandle chunks,
   const long long ci = *chunk_index + 1;
   *chunk_index = ci;
   cudaGraphSetConditional(chunks, ci < n_chunks ? 1u : 0u);
+}
+
+// The recorder's stamp: entry i = atomicAdd(cursor, 1) of `buf` (capacity
+// entries of two int64: the tag, then %globaltimer in ns) when i < capacity.
+// The cursor keeps counting past the capacity: the excess is the dropped
+// count. No TPU counterpart: the JAX package has no device clock in a span.
+// Bound: one launch (a few µs as a graph node), 16 bytes written.
+__global__ void stamp_kernel(long long* buf, unsigned long long* cursor,
+                             unsigned long long capacity, long long tag) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  const unsigned long long i = atomicAdd(cursor, 1ull);
+  if (i < capacity) {
+    buf[2 * i] = tag;
+    buf[2 * i + 1] = (long long)now;
+  }
 }
 
 // ---- the pieces' nodes -------------------------------------------------------
@@ -352,6 +375,16 @@ int rgt_frame_graph_launch(void* exec, void* stream) {
 
 int rgt_frame_graph_destroy(void* exec) {
   return (int)cudaGraphExecDestroy((cudaGraphExec_t)exec);
+}
+
+// One stamp (tag, %globaltimer) into `buf` (int64, capacity x 2) at the
+// entry `cursor` (uint64) hands out, launched on `stream` (captured with it
+// when the stream is capturing); does not sync.
+int rgt_stamp(long long* buf, unsigned long long* cursor, long long capacity,
+              long long tag, void* stream) {
+  stamp_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+      buf, cursor, (unsigned long long)capacity, tag);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

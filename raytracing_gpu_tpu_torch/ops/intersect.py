@@ -57,6 +57,7 @@ import torch
 from raytracing_gpu_tpu_torch.config import ANY_HIT_OFF
 from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
 from raytracing_gpu_tpu_torch.ops.fp import f32, sqrt_rn
+from raytracing_gpu_tpu_torch.utils.profiling import annotate
 
 INF = float("inf")
 KERNEL_BACKENDS = ("cuda", "cuda_matmul")
@@ -180,7 +181,9 @@ def _kernel_sweep(origins, dirs, pack, mt_eps, self_hit_eps, backend,
     (Rp,) +inf on a miss, idx (Rp,) int32 clustered slots or None). On the
     card K1's and K5's pair has stride 2 (`ck.key_halves`), on the CPU it is
     contiguous: callers slice, test and pass them to `ck.fetch_rows`, which
-    hold for either."""
+    hold for either. Spans "cull" (the tile cull) and "sweep" (the listing
+    and sweep kernels), inside the taped call: a tape's replay stamps
+    nothing."""
     op, dp, _ = ck.pack_rays(origins, dirs)
     if backend == "cuda_matmul":
         # Möller–Trumbore is translation invariant, and the expanded triple
@@ -189,22 +192,26 @@ def _kernel_sweep(origins, dirs, pack, mt_eps, self_hit_eps, backend,
         # sweeps build their features from these themselves.
         c = ck.live_centroid(origins)
         oc = op - c[:, None]
-        tmask = ck.tile_cull_mask_hierarchical(
-            oc, dp, pack._replace(tile_aabb=pack.tile_aabb - c), partitioning)
+        with annotate("cull"):
+            tmask = ck.tile_cull_mask_hierarchical(
+                oc, dp, pack._replace(tile_aabb=pack.tile_aabb - c), partitioning)
         sweep = (oc, dp, pack.v0 - c, pack.e1, pack.e2, tmask, mt_eps,
                  self_hit_eps)
-        if want_idx:
-            return ck.nearest_hit_matmul(*sweep)
-        return ck.nearest_dist_matmul(*sweep), None
-    tmask = ck.tile_cull_mask_hierarchical(op, dp, pack, partitioning)
+        with annotate("sweep"):
+            if want_idx:
+                return ck.nearest_hit_matmul(*sweep)
+            return ck.nearest_dist_matmul(*sweep), None
+    with annotate("cull"):
+        tmask = ck.tile_cull_mask_hierarchical(op, dp, pack, partitioning)
     sweep = (op, dp, pack.v0, pack.e1, pack.e2, tmask, mt_eps, self_hit_eps)
-    if not want_idx:
-        return ck.nearest_dist(*sweep), None
-    if (f2b_tiles > 0 and partitioning != "none"
-            and tmask.shape[0] > 2 * f2b_tiles):
-        return ck.nearest_hit_front_to_back(op, dp, pack, tmask, mt_eps,
-                                            self_hit_eps, f2b_tiles)
-    return ck.nearest_hit(*sweep)
+    with annotate("sweep"):
+        if not want_idx:
+            return ck.nearest_dist(*sweep), None
+        if (f2b_tiles > 0 and partitioning != "none"
+                and tmask.shape[0] > 2 * f2b_tiles):
+            return ck.nearest_hit_front_to_back(op, dp, pack, tmask, mt_eps,
+                                                self_hit_eps, f2b_tiles)
+        return ck.nearest_hit(*sweep)
 
 
 @torch.no_grad()  # a sweep only selects
@@ -256,7 +263,8 @@ def collide(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
         sweep_dist, idx = _swept(tape, lambda: _kernel_sweep(
             origins, dirs, pack, mt_eps, self_hit_eps, backend, partitioning,
             True, f2b_tiles))
-        rows = ck.fetch_rows(pack.table, idx[:R])
+        with annotate("sweep"):  # K3's fetch of the winners' rows
+            rows = ck.fetch_rows(pack.table, idx[:R])
         sweep_dist = sweep_dist[:R]
         if scene_group is not None:
             sweep_dist, rows = _combine_shards(sweep_dist, rows, scene_group)
@@ -338,9 +346,11 @@ def collide_dist(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
 @torch.no_grad()
 def _any_hit_sweep(origins, dirs, pack, mt_eps, self_hit_eps, partitioning):
     op, dp, R = ck.pack_rays(origins, dirs)
-    tmask = ck.tile_cull_mask_hierarchical(op, dp, pack, partitioning)
-    return ck.any_hit(op, dp, pack.v0, pack.e1, pack.e2, tmask, mt_eps,
-                      self_hit_eps)[:R]
+    with annotate("cull"):
+        tmask = ck.tile_cull_mask_hierarchical(op, dp, pack, partitioning)
+    with annotate("sweep"):
+        return ck.any_hit(op, dp, pack.v0, pack.e1, pack.e2, tmask, mt_eps,
+                          self_hit_eps)[:R]
 
 
 def collide_any(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,

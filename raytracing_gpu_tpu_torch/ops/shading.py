@@ -20,6 +20,7 @@ from raytracing_gpu_tpu_torch.models.scene import AMBIENT, DIRECTIONAL, POINT
 from raytracing_gpu_tpu_torch.ops.colors import ColorOps
 from raytracing_gpu_tpu_torch.ops.fp import sqrt_rn
 from raytracing_gpu_tpu_torch.ops.intersect import Hit, collide_any
+from raytracing_gpu_tpu_torch.utils.profiling import annotate
 
 # origin of the shadow rays of missed primaries: far outside every scene, so
 # tile culling drops them (with a zero direction Möller–Trumbore rejects them
@@ -86,7 +87,8 @@ def shade(scene, hit: Hit, cops: ColorOps, mt_eps=1e-7, self_hit_eps=0.01,
     hit.mask False get garbage (the caller masks them). The shadow pass only
     reads a boolean, so no gradient flows through it; `tape` is the
     `SweepTape` of a checkpointed bounce step, `scene_group` the group over
-    which the triangles are sharded."""
+    which the triangles are sharded. Span "shadow" around the shadow rays
+    and their test; the light math is the caller's "shade" span."""
     R = hit.point.shape[0]
     lights = scene.lights
     mrows = hit.mat if hit.mat is not None else material_rows(scene.materials, hit.obj)
@@ -94,11 +96,12 @@ def shade(scene, hit: Hit, cops: ColorOps, mt_eps=1e-7, self_hit_eps=0.01,
     N = hit.normal
     hp = hit.point
 
-    so, sd, block = shadow_rays(lights, hit)
-    if so is not None:
-        occluded = collide_any(so, sd, scene.geometry, mt_eps, self_hit_eps,
-                               backend, pack, partitioning,
-                               any_hit_min_tris, tape, scene_group).reshape(-1, R)
+    with annotate("shadow"):
+        so, sd, block = shadow_rays(lights, hit)
+        if so is not None:
+            occluded = collide_any(so, sd, scene.geometry, mt_eps, self_hit_eps,
+                                   backend, pack, partitioning,
+                                   any_hit_min_tris, tape, scene_group).reshape(-1, R)
 
     contribs = {}
     for kind in (DIRECTIONAL, POINT):

@@ -69,6 +69,7 @@ from raytracing_gpu_tpu_torch.render import (
     resolve_device,
     trace_chunks,
 )
+from raytracing_gpu_tpu_torch.utils.profiling import annotate
 from raytracing_gpu_tpu_torch.utils.step_graph import (
     StepPlan,
     require_capturable,
@@ -308,36 +309,48 @@ def make_train_step(mesh, cfg: RenderConfig, scene: Scene, optimizer=None,
         """This tile's loss; the free groups' gradients from its rays are
         left in their `.grad`. `in_plan`: the step of a `StepPlan`, which
         reads nothing back to the host (the camera basis on the device,
-        every bounce step traced)."""
-        scene_now = insert_params(scene_fixed, params)
-        if cfg.partitioning != "none" and cfg.backend == "torch":
-            scene_now, _ = with_accel(scene_now, cfg.partitioning)
-        basis = camera_ops.camera_basis_on_device if in_plan else camera_ops.camera_basis
-        u, v, C = basis(scene_now.camera)
-        origins, dirs = camera_ops.make_rays(u, v, C, params["cam_position"],
-                                             coords)
+        every bounce step traced). Spans "forward" (each chunk's trace and
+        loss) and "backward" (each backward pass)."""
+        with annotate("forward"):
+            scene_now = insert_params(scene_fixed, params)
+            if cfg.partitioning != "none" and cfg.backend == "torch":
+                scene_now, _ = with_accel(scene_now, cfg.partitioning)
+            basis = (camera_ops.camera_basis_on_device if in_plan
+                     else camera_ops.camera_basis)
+            u, v, C = basis(scene_now.camera)
+            origins, dirs = camera_ops.make_rays(u, v, C, params["cam_position"],
+                                                 coords)
+            chunks = trace_chunks(scene_now, origins, dirs, cfg, depth,
+                                  scene_group=scene_group, fixed_depth=in_plan)
         scale = 1.0 / (3.0 * n_pixels)
-        chunkwise = loss_blur <= 0.0 and min(cfg.ray_chunk, coords.shape[0]) % 4 == 0
+        R = coords.shape[0]
+        chunkwise = loss_blur <= 0.0 and min(cfg.ray_chunk, R) % 4 == 0
         total, kept = 0.0, []
-        for c0, colors in trace_chunks(scene_now, origins, dirs, cfg, depth,
-                                       scene_group=scene_group, fixed_depth=in_plan):
-            if not chunkwise:
-                kept.append(colors)
-                continue
-            pred = colors.reshape(-1, 4, 3).mean(1)
-            err = pred - target[c0 // 4:c0 // 4 + pred.shape[0]]
-            part = (err * err).sum() * scale
-            # the camera's and the pack's small graphs are shared by every chunk
-            part.backward(retain_graph=True)
+        # one chunk of `trace_chunks` per pass, so that its trace falls in a span
+        for _ in range(0, R, min(cfg.ray_chunk, R)):
+            with annotate("forward"):
+                c0, colors = next(chunks)
+                if not chunkwise:
+                    kept.append(colors)
+                    continue
+                pred = colors.reshape(-1, 4, 3).mean(1)
+                err = pred - target[c0 // 4:c0 // 4 + pred.shape[0]]
+                part = (err * err).sum() * scale
+            with annotate("backward"):
+                # the camera's and the pack's small graphs are shared by every chunk
+                part.backward(retain_graph=True)
             total = total + part.detach()
             del colors, pred, err, part  # frees this chunk's graph
+        chunks.close()
         if chunkwise:
             return total
-        err = torch.cat(kept).reshape(-1, 4, 3).mean(1) - target
-        if loss_blur > 0.0:
-            err = _blur_residual(err, n_pixels, loss_blur, blur_taps)
-        loss = (err * err).sum() * scale
-        loss.backward()
+        with annotate("forward"):
+            err = torch.cat(kept).reshape(-1, 4, 3).mean(1) - target
+            if loss_blur > 0.0:
+                err = _blur_residual(err, n_pixels, loss_blur, blur_taps)
+            loss = (err * err).sum() * scale
+        with annotate("backward"):
+            loss.backward()
         return loss.detach()
 
     def sum_over_tiles(params, loss):

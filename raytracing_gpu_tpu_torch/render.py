@@ -63,6 +63,7 @@ from raytracing_gpu_tpu_torch.ops.intersect import (
 from raytracing_gpu_tpu_torch.ops.shading import PARKED, material_rows, shade
 from raytracing_gpu_tpu_torch.partition.apply import with_accel
 from raytracing_gpu_tpu_torch.utils import image as image_io
+from raytracing_gpu_tpu_torch.utils import profiling
 from raytracing_gpu_tpu_torch.utils.frame_graph import (
     FrameLayout,
     FramePlan,
@@ -75,6 +76,7 @@ from raytracing_gpu_tpu_torch.utils.image_graph import (
     needs_grad,
     uses_image_graph,
 )
+from raytracing_gpu_tpu_torch.utils.profiling import annotate
 
 
 def resolve_device(device) -> torch.device:
@@ -127,21 +129,25 @@ def _bounce_step(scene, cfg, cops, pack, gpu_semantics, tape, scene_group,
     """One bounce of either pipeline: nearest hits, their shaded colors
     added under the running coefficient, and the mirror rays of the rays
     still in use (every other ray is parked). `alive` comes in already
-    narrowed to the rays this bounce traces."""
-    hit = collide(o, d, scene.geometry, cfg.mt_eps, cfg.self_hit_eps,
-                  cfg.backend, pack, cfg.partitioning, cfg.f2b_tiles, tape,
-                  scene_group)
-    local = shade(scene, hit, cops, cfg.mt_eps, cfg.self_hit_eps,
-                  cfg.backend, pack, cfg.partitioning, cfg.any_hit_min_tris,
-                  tape, scene_group)
-    use = alive & hit.mask
-    color = cops.add(color, torch.where(use[:, None],
-                                        cops.mul(local, coef[:, None]), 0.0))
-    o, d = _bounce(o, d, hit, use)
-    if gpu_semantics:
-        coef = coef * torch.where(use, _winner_nr(scene, hit), 0.0)
-    else:
-        coef = torch.where(use, _winner_nr(scene, hit) * coef, 0.0)
+    narrowed to the rays this bounce traces. Spans "collide", "shade" and
+    "update"."""
+    with annotate("collide"):
+        hit = collide(o, d, scene.geometry, cfg.mt_eps, cfg.self_hit_eps,
+                      cfg.backend, pack, cfg.partitioning, cfg.f2b_tiles, tape,
+                      scene_group)
+    with annotate("shade"):
+        local = shade(scene, hit, cops, cfg.mt_eps, cfg.self_hit_eps,
+                      cfg.backend, pack, cfg.partitioning, cfg.any_hit_min_tris,
+                      tape, scene_group)
+    with annotate("update"):
+        use = alive & hit.mask
+        color = cops.add(color, torch.where(use[:, None],
+                                            cops.mul(local, coef[:, None]), 0.0))
+        o, d = _bounce(o, d, hit, use)
+        if gpu_semantics:
+            coef = coef * torch.where(use, _winner_nr(scene, hit), 0.0)
+        else:
+            coef = torch.where(use, _winner_nr(scene, hit) * coef, 0.0)
     return o, d, coef, use, color
 
 
@@ -155,7 +161,8 @@ def _trace(scene, origins, dirs, cfg, pack, n_bounces: int, gpu_semantics: bool,
     bounce), unless `fixed_depth`: then it runs all `n_bounces` steps, as
     the JAX package's differentiable strategy does, and reads nothing back
     (what a captured training step runs). A step whose rays are all dead
-    adds exact zeros, so the colors are the same either way."""
+    adds exact zeros, so the colors are the same either way. The recorder
+    counts the rays each step traces and its slots."""
     cops = ColorOps(cfg.quantize)
     R = origins.shape[0]
     cutoff = f32(cfg.reflect_cutoff)
@@ -172,6 +179,8 @@ def _trace(scene, origins, dirs, cfg, pack, n_bounces: int, gpu_semantics: bool,
         # at different bounces, so no collective may cross that group here
         if not fixed_depth and not bool(alive.any()):
             break
+        profiling.count("live_rays", alive)
+        profiling.count("ray_slots", alive.numel())
         if remat:
             tape = SweepTape()
             step = functools.partial(_bounce_step, scene, cfg, cops, pack,

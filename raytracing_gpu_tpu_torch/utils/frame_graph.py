@@ -24,12 +24,20 @@ It then assembles them (`csrc/frame_loop.cu`) into one graph that runs
 loop (a WHILE node over "step" and the `bounce_condition` kernel) and
 "fold", with the `loop_reset` and `chunk_advance` kernels setting the two
 conditions on the device. `render()` launches that graph once, assembles
-the image eagerly (the finalize and unswizzle, or the box downscale),
-counting the host syncs torch makes meanwhile (there are none), and then
-reads the loop state's counts once: the condition kernels' launches and the
-bounce steps each chunk took, both counted on the device. No host sync
-happens between chunks or bounces. The chunks and bounces it runs are
-exactly the eager loop's, and the image is the eager image bit for bit.
+the image eagerly (the finalize and unswizzle, or the box downscale), while
+the recorder is on counting the host syncs torch makes meanwhile (there are
+none), and then reads the loop state's counts once: the condition kernels'
+launches and the bounce steps each chunk took, both counted on the device.
+No host sync happens between chunks or bounces. The chunks and bounces it
+runs are exactly the eager loop's, and the image is the eager image bit for
+bit.
+
+The pieces are the program's spans "rays", "bounce" (the bounce step's own
+spans inside it, and "update" for the state copies and the flag) and
+"fold" (`utils.profiling.annotate`); "bounce" also counts the rays it
+traces and its slots (`profiling.count`). A plan captured inside
+`profiling.recording()` holds their stamps and counters, so they replay
+inside the WHILE bodies; one captured outside holds none.
 
 On the CPU nothing is captured: `interpret` walks the same `PROGRAM` node
 by node, calling the pieces and the kernels' plain twins (`loop_reset`,
@@ -70,6 +78,8 @@ from raytracing_gpu_tpu_torch.ops import camera as camera_ops
 from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
 from raytracing_gpu_tpu_torch.ops.colors import ColorOps
 from raytracing_gpu_tpu_torch.ops.fp import f32
+from raytracing_gpu_tpu_torch.utils import profiling
+from raytracing_gpu_tpu_torch.utils.profiling import annotate
 
 PIECES = ("rays", "step", "fold")
 KERNELS = ("loop_reset", "bounce_condition", "chunk_advance")
@@ -167,7 +177,8 @@ class FrameCounts(NamedTuple):
     """What one `FramePlan.render()` did, as counted: launches of the frame
     graph (`FrameGraph.launches`; 0 on the CPU, which interprets the
     program), host syncs torch made from the launch to the finished image
-    (`counted_syncs`; None on the CPU), the bounce steps per chunk and
+    (`counted_syncs`, while the recorder is on; None otherwise and on the
+    CPU), the bounce steps per chunk and
     {condition kernel: launches}, both counted on the device by the kernels
     (on the CPU by their twins) and read once, after the frame."""
 
@@ -411,6 +422,8 @@ def capture_graph(graph, fn, stream, pool=None) -> None:
     without its `torch.cuda.empty_cache()`: a capture leaves the blocks the
     allocator has cached for the rest of the process where they are."""
     torch.cuda.synchronize(stream.device)  # nothing of before is in flight
+    # a graph captured while recording writes the recorder's buffers: it holds them
+    graph.recorder = profiling.active()
     with torch.cuda.stream(stream):
         graph.capture_begin(*(() if pool is None else (pool,)))
         try:
@@ -492,41 +505,49 @@ class FramePlan:
     # ---- the pieces: device work only, no host read ----------------------
 
     def _rays(self):
-        """The chunk's camera rays and a fresh state."""
-        dev = self.device
-        chunk = self.frame.chunk
-        r = torch.clamp(self._loop.chunk_index * chunk + torch.arange(chunk, device=dev),
-                        max=self.frame.n_rays - 1)
-        o, d = camera_ops.make_rays(self._u, self._v, self._C, self._pos,
-                                    self.frame.coords(r))
-        self._o.copy_(o)
-        self._d.copy_(d)
-        self._coef.fill_(1.0)
-        self._alive.fill_(True)
-        self._color.zero_()
+        """The chunk's camera rays and a fresh state (span "rays")."""
+        with annotate("rays"):
+            dev = self.device
+            chunk = self.frame.chunk
+            r = torch.clamp(self._loop.chunk_index * chunk
+                            + torch.arange(chunk, device=dev), max=self.frame.n_rays - 1)
+            o, d = camera_ops.make_rays(self._u, self._v, self._C, self._pos,
+                                        self.frame.coords(r))
+            self._o.copy_(o)
+            self._d.copy_(d)
+            self._coef.fill_(1.0)
+            self._alive.fill_(True)
+            self._color.zero_()
 
     def _step(self):
         """One bounce step over the state, narrowed as `render._trace`
-        narrows it, and the flag: is any ray alive for the next step?"""
-        alive = self._alive
-        if not self.frame.gpu_semantics:
-            alive = alive & (self._coef >= self.cutoff)
-        o, d, coef, use, color = self._step_fn(self._o, self._d, self._coef,
-                                               alive, self._color)
-        if self.frame.gpu_semantics:
-            use = use & (coef > self.cutoff)
-            more = use
-        else:
-            more = use & (coef >= self.cutoff)
-        for buf, new in ((self._o, o), (self._d, d), (self._coef, coef),
-                         (self._alive, use), (self._color, color)):
-            buf.copy_(new)
-        self._loop.flag.copy_(more.any().reshape(1))
+        narrows it, and the flag: is any ray alive for the next step? (Span
+        "bounce"; the recorder counts the rays it traces and its slots.)"""
+        with annotate("bounce"):
+            alive = self._alive
+            if not self.frame.gpu_semantics:
+                alive = alive & (self._coef >= self.cutoff)
+            profiling.count("live_rays", alive)
+            profiling.count("ray_slots", alive.numel())
+            o, d, coef, use, color = self._step_fn(self._o, self._d, self._coef,
+                                                   alive, self._color)
+            with annotate("update"):
+                if self.frame.gpu_semantics:
+                    use = use & (coef > self.cutoff)
+                    more = use
+                else:
+                    more = use & (coef >= self.cutoff)
+                for buf, new in ((self._o, o), (self._d, d), (self._coef, coef),
+                                 (self._alive, use), (self._color, color)):
+                    buf.copy_(new)
+                self._loop.flag.copy_(more.any().reshape(1))
 
     def _fold(self):
-        """The chunk's colors (or pixels) into the frame buffer."""
-        colors = self._fold_fn(self._color) if self.frame.fold4 else self._color
-        self._out.index_copy_(0, self._loop.chunk_index.reshape(1), colors[None])
+        """The chunk's colors (or pixels) into the frame buffer (span
+        "fold")."""
+        with annotate("fold"):
+            colors = self._fold_fn(self._color) if self.frame.fold4 else self._color
+            self._out.index_copy_(0, self._loop.chunk_index.reshape(1), colors[None])
 
     # ---- capture, assembly and launch -------------------------------------
 
@@ -583,19 +604,28 @@ class FramePlan:
         its own (the frame buffer is reused by the next frame)."""
         with _current(self.device):
             if self.graph is None:
-                interpret(PROGRAM, self._loop, self._pieces, self.n_chunks,
-                          self.n_bounces, self.first_step)
-                out = self._finish()
+                with annotate("frame.launch", device=False):
+                    interpret(PROGRAM, self._loop, self._pieces, self.n_chunks,
+                              self.n_bounces, self.first_step)
+                with annotate("frame.finish", device=False):
+                    out = self._finish()
                 launches, syncs = 0, None
             else:
                 before = self.graph.launches
-                with counted_syncs() as synced:
-                    self.graph.launch(torch.cuda.current_stream(self.device))
-                    out = self._finish()
-                launches, syncs = self.graph.launches - before, synced.n
+                # syncs are counted only while recording: the count's sync
+                # debug mode and caught warnings stay off the hot path
+                recording = profiling.active() is not None
+                with counted_syncs() if recording else contextlib.nullcontext() as synced:
+                    with annotate("frame.launch", device=False):
+                        self.graph.launch(torch.cuda.current_stream(self.device))
+                    with annotate("frame.finish", device=False):
+                        out = self._finish()
+                launches = self.graph.launches - before
+                syncs = synced.n if recording else None
             # the frame's one read back, after its last chunk (`tolist`
             # dispatches no operation, so the CPU tests' guard lets it by)
-            steps, loops = self._loop.read()
+            with annotate("frame.read", device=False):
+                steps, loops = self._loop.read()
         if self.graph is not None:
             # each piece ran as often as the kernel after it in PROGRAM
             runs = {"rays": loops["loop_reset"], "step": loops["bounce_condition"],

@@ -56,6 +56,7 @@ from raytracing_gpu_tpu_torch.utils.frame_graph import (
     capture_graph,
     reserved_bytes,
 )
+from raytracing_gpu_tpu_torch.utils.profiling import annotate
 
 
 def step_graph_blocker(cfg, mesh=None) -> str | None:
@@ -199,14 +200,14 @@ class StepPlan:
             if self.device.type != "cuda":
                 self.last_call = "eager"
                 state.opt_state.zero_grad(set_to_none=True)
-                self._forward_backward()
-                state.opt_state.step()
+                self._step()
             elif fresh:
                 self.last_call = "captured"
                 self._warm_up_and_capture()
             else:
                 self.last_call = "replay"
-                self._graph.replay()
+                with annotate("step.launch", device=False):
+                    self._graph.replay()
                 ck.add_launches(self.graph_launches)
                 self.replays += 1
             loss = self._loss.clone()
@@ -237,8 +238,12 @@ class StepPlan:
                                               self._coords, self._target))
 
     def _step(self):
-        self._forward_backward()
-        self._state.opt_state.step()
+        """Span "step" around the forward and backward passes and span
+        "optimizer" (`loss_and_grads` spans "forward" and "backward")."""
+        with annotate("step"):
+            self._forward_backward()
+            with annotate("optimizer"):
+                self._state.opt_state.step()
 
     def _warm_up_and_capture(self):
         """This call's step, eager on a side stream with any host sync

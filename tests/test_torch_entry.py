@@ -110,10 +110,17 @@ def test_cli_unroll_and_profile(scene_path, tmp_path, capsys):
     assert "8x6 in" in capsys.readouterr().err
     with open(plain, "rb") as a, open(traced, "rb") as b:
         assert a.read() == b.read()
-    files = os.listdir(trace_dir)
-    assert len(files) == 1 and files[0].endswith(".json") and str(os.getpid()) in files[0]
-    with open(trace_dir / files[0]) as f:
+    # torch.profiler's trace and the program recorder's, beside it
+    files = sorted(os.listdir(trace_dir))
+    assert [f.split(".")[0] for f in files] == ["program", "trace"]
+    assert all(f.endswith(".json") and str(os.getpid()) in f for f in files)
+    with open(trace_dir / files[1]) as f:
         assert json.load(f)["traceEvents"]
+    with open(trace_dir / files[0]) as f:
+        program = json.load(f)
+    names = {e["name"] for e in program["traceEvents"] if e.get("cat") == "device"}
+    assert {"collide", "cull", "sweep", "shade", "shadow", "update"} <= names
+    assert program["otherData"]["dropped"] == 0
 
 
 @pytest.mark.parametrize("value", ["auto", "while", "static"])

@@ -188,9 +188,13 @@ def test_cli_sharded_in_a_group(group, tmp_path, name):
 
 
 def test_cli_profile_writes_one_trace_per_rank(group):
-    """`--tiles 2 --profile DIR`: each rank's trace lands in DIR under its
-    own name."""
+    """`--tiles 2 --profile DIR`: each rank's traces land in DIR under its
+    own name, torch.profiler's (`trace.*`) and the program recorder's
+    (`program.*`)."""
     group.wait()
     files = sorted(os.listdir(os.path.join(group.out, "traces")))
-    assert len(files) == 2 and all(f.endswith(".json") for f in files)
-    assert {re.search(r"\.rank(\d+)\.", f).group(1) for f in files} == {"0", "1"}
+    assert len(files) == 4 and all(f.endswith(".json") for f in files)
+    for kind in ("program", "trace"):
+        ranks = {re.search(r"\.rank(\d+)\.", f).group(1) for f in files
+                 if f.startswith(kind + ".")}
+        assert ranks == {"0", "1"}, files
