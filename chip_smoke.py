@@ -5,8 +5,10 @@
 
 Builds the port's CUDA kernels from raytracing_gpu_tpu_torch/csrc with nvcc
 (one `nvcc -c` per source, side by side, then one link), checks each of the six intersection
-kernels against its plain PyTorch version on the card at the shapes the
-renders give it, and the frame graph's three condition kernels
+kernels and the tile cull (`tile_cull_kernel`, on the benchmark's `spheres`
+configuration's nearest-hit chunk and its 5-light shadow batch) against its
+plain PyTorch version on the card at the shapes the renders give it, and
+the frame graph's three condition kernels
 (`csrc/frame_loop.cu`: `loop_reset`, `bounce_condition`, `chunk_advance`)
 against their twins (`[loop]`: standalone frame graphs driven by seeded
 tables of alive flags against the interpreter over the same tensors, the
@@ -162,6 +164,7 @@ from raytracing_gpu_tpu_torch import (
     RenderConfig,
     SceneRenderer,
     parse_scene,
+    parse_scene_text,
     render,
     render_image,
 )
@@ -205,7 +208,8 @@ PALLAS = "raytracing_gpu_tpu/ops/pallas_intersect.py"
 REPLACES = {"nearest_hit": f"{PALLAS}:230", "nearest_dist": f"{PALLAS}:316",
             "fetch_rows": f"{PALLAS}:523", "any_hit": f"{PALLAS}:407",
             "nearest_hit_matmul": f"{PALLAS}:794",
-            "nearest_dist_matmul": f"{PALLAS}:844"}
+            "nearest_dist_matmul": f"{PALLAS}:844",
+            "tile_cull": f"none: {PALLAS}:1038 tile_cull_mask_packed is jnp"}
 EPS = dict(mt_eps=1e-7, self_hit_eps=0.01)
 SPHERES = dict(n_lat=32, n_lon=40)  # 4,962 triangles
 ALIASING = 3
@@ -603,9 +607,62 @@ def shadows_of(scene, rays, pack):
     return so, sd
 
 
+# FP32 operations per (ray, box) pair of the slab test: per axis two
+# subtractions, two multiplies and four min / max
+OPS_PER_RAY_BOX = 24
+BENCH_SPHERES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench",
+                             "configs", "spheres.json")
+
+
+def bench_spheres(dev):
+    """The benchmark's `spheres` configuration at 512x512 (4,812 triangles,
+    19 tiles, 5 shadow lights), through the `.svati` text its cells parse."""
+    from portbench import scenes as bench_scenes
+
+    with open(BENCH_SPHERES) as f:
+        config = json.load(f)
+    text = bench_scenes.svati_text(bench_scenes.build(config, 512, 512, seed=0))
+    return parse_scene_text(text).to(dev)
+
+
+def check_cull(rays, pack, iters, what):
+    """The tile cull against its plain twin on one packed ray batch: equal
+    masks, and to its own second run. Bound: each ray read once (24 bytes),
+    the mask written once, the boxes read once, against 24 operations per
+    (ray, box) pair; the plain twin is timed warm, as the frames run it."""
+    op, dp, _ = ck.pack_rays(*rays)
+    args = (op, dp, pack.tile_aabb, pack.tile_nonempty)
+    ref = ck.tile_cull_mask_packed_plain(*args)
+    plain_ms = cuda_ms(lambda: ck.tile_cull_mask_packed_plain(*args), iters)
+    got, again = ck.tile_cull_mask_packed(*args), ck.tile_cull_mask_packed(*args)
+    torch.cuda.synchronize()
+    for other, label in ((ref, "its plain twin"), (again, "its own second run")):
+        n = int((got != other).sum())
+        if n or got.dtype != torch.int32:
+            raise AssertionError(f"tile_cull ({what}): {n} mask entries differ "
+                                 f"from {label}")
+    Rp, (nB, nR) = op.shape[1], got.shape
+    kept = int(got.sum())
+    if not 0 < kept < got.numel():
+        raise AssertionError(f"tile_cull ({what}): {kept} of {got.numel()} pairs "
+                             "kept; the check is vacuous")
+    bms, by = bound(Rp * nB * OPS_PER_RAY_BOX, Rp * 24 + nB * nR * 4 + nB * 25)
+    res = dict(max_abs_err=0.0,
+               ms=cuda_ms(lambda: ck.tile_cull_mask_packed(*args), iters),
+               device_ms=device_ms(lambda: ck.tile_cull_mask_packed(*args)),
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+               library_device_ms=None)
+    say("kernels", f"tile_cull ({what}): {Rp} rays x {nB} boxes, {kept}/"
+        f"{got.numel()} pair tiles kept: equal to the plain twin (max_abs_err 0), "
+        f"and to its own second run; wrapper {res['ms']:.4f} ms, device only "
+        f"{res['device_ms']:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.5f} ms "
+        f"({by})")
+    return res
+
+
 def check_kernels(dev):
-    """All six kernels against their plain versions on the card, at the
-    shapes the renders give them. Returns {kernel: result dict} at the shapes
+    """All six kernels and the tile cull against their plain versions on the
+    card, at the shapes the renders give them. Returns {kernel: result dict} at the shapes
     of the path that claims the kernel: K1-K3 and K5/K6 on one 65,536-ray
     chunk of the sphere scene's CPU-mode primary rays and its 131,072 shadow
     rays, K4 on the shadow rays of one GPU-mode chunk. Every kernel is also
@@ -620,6 +677,14 @@ def check_kernels(dev):
     say("kernels", f"sphere scene {sph.n_triangles} triangles; grid "
         f"{grid.n_triangles} triangles ({grid_pack.table.numel() * 4 / 2**20:.1f} MB table)")
     results = {}
+    bench = bench_spheres(dev)
+    bench_pack = scene_pack(bench)
+    bprim = cpu_primary_rays(bench, chunk)
+    results["tile_cull"] = check_cull(shadows_of(bench, bprim, bench_pack),
+                                      bench_pack, 50, "benchmark spheres, its "
+                                      "5-light shadow batch")
+    results["tile_cull"]["nearest_chunk"] = check_cull(
+        bprim, bench_pack, 50, "benchmark spheres, CPU-mode primary chunk")
     prim = cpu_primary_rays(sph, chunk)
     shad = shadows_of(sph, prim, sph_pack)
     results["nearest_hit"] = check_sweep("nearest_hit", prim, sph_pack, 20,
@@ -1079,7 +1144,8 @@ def check_frame_loop(dev) -> dict:
 
 OWN_KERNELS = ("fetch_rows_kernel", "sweep_list_kernel") + tuple(
     f"sweep_kernel<{kind}>" for kind in ("NEAREST_HIT", "NEAREST_DIST", "ANY_HIT",
-                                         "MATMUL_HIT", "MATMUL_DIST"))
+                                         "MATMUL_HIT", "MATMUL_DIST")) + (
+    "tile_cull_kernel",)
 
 
 def own_kernel(name: str):
@@ -1088,7 +1154,8 @@ def own_kernel(name: str):
     if "sweep_kernel<" in name:
         digits = [c for c in name.split("sweep_kernel<")[1].split(">")[0] if c.isdigit()]
         return OWN_KERNELS[2 + int(digits[-1])] if digits else None
-    names = OWN_KERNELS[:2] + tuple(f"{k}_kernel" for k in frame_graph.KERNELS)
+    names = OWN_KERNELS[:2] + OWN_KERNELS[7:] + tuple(
+        f"{k}_kernel" for k in frame_graph.KERNELS)
     return next((t for t in names if t in name), None)
 
 
@@ -1102,6 +1169,7 @@ def expected_kernels(counted) -> dict:
     wrappers' and the condition kernels', by name) say ran."""
     want = {f"{k}_kernel": counted[k] for k in frame_graph.KERNELS}
     want["fetch_rows_kernel"] = counted["fetch_rows"]
+    want["tile_cull_kernel"] = counted["tile_cull"]
     for name, kind in SWEEP_KIND.items():
         want[f"sweep_kernel<{kind}>"] = counted[name]
     return {k: n for k, n in want.items() if n}
@@ -2311,7 +2379,7 @@ def check_entry(scene, cfg, renderer, ref_img, dev, kind, smi):
         kernels = trace_kernels(trace_dir)
         ours = {t: sum(n for k, n in kernels.items() if own_kernel(k) == t)
                 for t in ("sweep_kernel<NEAREST_HIT>", "sweep_kernel<NEAREST_DIST>",
-                          "fetch_rows_kernel")}
+                          "fetch_rows_kernel", "tile_cull_kernel")}
         if not all(ours.values()):
             raise AssertionError(f"the CLI's trace lacks the port's kernels: {ours}")
         program = [f for f in os.listdir(trace_dir) if f.startswith("program.")]
@@ -2581,7 +2649,7 @@ def check_all(dev, smi, kind, count, want_profile, ranks) -> int:
     cfg = RenderConfig(backend="cuda")
     spheres512 = make_sphere_scene(512, 512, **SPHERES)
     cpu_rays = 512 * 512 * 4
-    k123 = ("nearest_hit", "nearest_dist", "fetch_rows")
+    k123 = ("nearest_hit", "nearest_dist", "fetch_rows", "tile_cull")
 
     # ---- CPU mode, backend "cuda": the sphere scene at 512x512, its frame
     # captured and replayed, held against the eager frame
@@ -2702,7 +2770,8 @@ def check_all(dev, smi, kind, count, want_profile, ranks) -> int:
 
     path_of = {"nearest_hit": "cpu_mode", "nearest_dist": "cpu_mode",
                "fetch_rows": "cpu_mode", "any_hit": "gpu_mode",
-               "nearest_hit_matmul": "matmul", "nearest_dist_matmul": "matmul"}
+               "nearest_hit_matmul": "matmul", "nearest_dist_matmul": "matmul",
+               "tile_cull": "cpu_mode"}
     kernels = []
     for name, p in path_of.items():
         entry = {"name": name, "route": "cuda", "source": SOURCE,
@@ -2716,6 +2785,10 @@ def check_all(dev, smi, kind, count, want_profile, ranks) -> int:
             entry["other_shapes"] = other
         entry["path"] = p
         entry["launches_by_path"] = {q: c[name] for q, c in launches.items()}
+        if name == "tile_cull":
+            entry["note"] = ("no TPU kernel: the JAX package culls in jnp; ms is the "
+                             "benchmark spheres' 5-light shadow batch")
+            entry["nearest_chunk"] = {k: results[name]["nearest_chunk"][k] for k in keys}
         if name == "fetch_rows":
             entry["also_replaces"] = f"{PALLAS}:568"
             entry["backward"] = dict(

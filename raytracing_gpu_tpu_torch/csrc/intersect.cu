@@ -1,6 +1,8 @@
 // Hand-written Hopper kernels for the render's intersection hot path.
 //
-// Six kernels, one translation unit, one build (csrc/build.py):
+// Six kernels that replace Pallas kernels, and the tile cull, which replaces
+// none (tile_cull_kernel, below); one translation unit, one build
+// (csrc/build.py):
 //   sweep_kernel<NEAREST_HIT>  (K1) replaces raytracing_gpu_tpu/ops/
 //                              pallas_intersect.py _nearest_kernel /
 //                              nearest_hit_pallas
@@ -10,6 +12,8 @@
 //   sweep_kernel<ANY_HIT>      (K4) replaces _any_kernel / any_hit_pallas
 //   sweep_kernel<MATMUL_HIT>   (K5) replaces _mxu_kernel / nearest_hit_mxu
 //   sweep_kernel<MATMUL_DIST>  (K6) replaces _mxu_dist_kernel / nearest_dist_mxu
+//   tile_cull_kernel           the exact per-ray tile cull (jnp in the JAX
+//                              package: tile_cull_mask_packed)
 // The five sweeps are one persistent kernel over one queue of work units
 // (see K1 / K2 below); they differ in what a thread keeps of its ray, in what
 // a unit stages and in how a unit's result joins the others.
@@ -558,6 +562,133 @@ __global__ void __launch_bounds__(FETCH_ROWS * L)
       (j >= 0 && j < Tp) ? __ldg(table + j * L + lane) : nan4;
 }
 
+// The tile cull: the (box, ray tile) mask of ops/cuda_intersect.
+// tile_cull_mask_packed, entry (b, rt) = 1 when box b is nonempty and some
+// ray of ray tile rt passes its slab test: t1 = (lo - o) * inv and t2 = (hi
+// - o) * inv per axis, tmin = max(tmin, min(t1, t2)) and tmax = min(tmax,
+// max(t1, t2)) from -inf / +inf, kept when tmax >= tmin and tmax >= 0, with
+// inv = 1 / d (1e-30 standing in for a zero component).
+//
+// It replaces no Pallas kernel: the JAX package computes the cull in jnp
+// (raytracing_gpu_tpu/ops/pallas_intersect.py, tile_cull_mask_packed /
+// _slab_hits_packed), and the port first computed it as tensor ops, now its
+// plain twin tile_cull_mask_packed_plain. Those build (boxes x rays) float
+// tensors one op at a time, ~35 kernels a cull, each reading two tensors of
+// (boxes x rays) floats and writing one: the cull was the largest layer of a
+// frame (PERF.md section 5, bottleneck 1; 0.61 ms a shadow cull of 327,680
+// rays against 20 boxes, 0.14 ms a 65,536-ray nearest cull).
+//
+// What bounds it: device-memory bytes. Each ray's origin and direction are
+// read once (24 bytes) and only the (boxes x ray tiles) int32 mask written:
+// 7.9 MB and 100 KB for the shadow batch, 2.4 us at 3.35 TB/s. The
+// arithmetic is ~28 FP32 instructions per (ray, box), ~6 us of the card's
+// issue rate at that batch, so the kernel sits between the two.
+//
+// The design: one block per ray tile, one ray per thread. A thread loads its
+// ray once, coalesced from the (3, Rp) planes, and computes inv once per
+// axis, with IEEE division. The boxes are staged in shared memory
+// CULL_CHUNK at a time, so any number of boxes works (a flat cull has at
+// most 64, partitioning "aabb" any number of leaf tiles), with the chunk's
+// nonempty flags as ballot words. Every thread reads each box as a
+// broadcast and runs the slab chain above in the same order; a warp ORs its
+// lanes' verdicts for 32 boxes at once (__reduce_or_sync) into a shared word
+// per 32 boxes, and after one barrier the block writes its column of the
+// mask, the chunk's words ANDed with the nonempty words.
+//
+// Bit-equal to the twin: -fmad=false and IEEE division (the build's flags),
+// and the max / min of torch.maximum / torch.minimum, which return NaN when
+// either side is NaN where fmaxf / fminf return the other side. A NaN
+// arises where a direction component is a subnormal below ~3e-39 (inv =
+// inf) and lo - o or hi - o is 0 (0 * inf): the twin culls that (box, ray)
+// pair, which fmaxf / fminf, dropping the NaN, can keep (a ray with three
+// such components starting on a box's corner). max.NaN / min.NaN (sm_80 on)
+// are the propagating forms in one instruction each (FMNMX.NAN).
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W, device time per launch, `python3
+// chip_smoke.py`, the benchmark's 19-tile sphere scene): 0.0127 ms for a
+// 5-light shadow batch of 327,680 rays (the twin's ~35 kernels 0.6 ms in a
+// frame), 0.0044 ms for a 65,536-ray chunk, against bounds of 0.0024 and
+// 0.0005 ms; 0.041 ms for 65,536 rays against 375 leaf boxes. That is ~2x
+// the instruction floor of ~30 FP32 instructions a (ray, box) pair, none of
+// them fused. Shapes built and measured no faster (shadow batch / chunk /
+// 375 boxes, us): 2, 4 or 8 rays a thread (13.1 / 4.9 / 39.1, 13.0 / 6.6 /
+// 49.5, 17.5 / 11.4 / 97.9), one ray a thread with the boxes read as float4
+// + float2 (13.0 / 4.7 / 42.3), and fminf / fmaxf wherever a warp's rays and
+// the chunk's boxes are finite, where no NaN can arise (12.9 / 4.7 / 38.8),
+// against 12.7 / 4.4 / 40.6 for this kernel.
+#define CULL_CHUNK TILE_R  // boxes staged per round: one per thread
+#define CULL_WORDS (CULL_CHUNK / 32)
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__global__ void __launch_bounds__(TILE_R)
+    tile_cull_kernel(const float* __restrict__ op, const float* __restrict__ dp,
+                     int Rp, const float* __restrict__ boxes,
+                     const unsigned char* __restrict__ nonempty, int nB,
+                     int* __restrict__ mask) {
+  __shared__ float box[CULL_CHUNK * 6];  // per box: lo x y z, hi x y z
+  __shared__ unsigned kept[CULL_WORDS];  // OR over the block, bit = box
+  __shared__ unsigned filled[CULL_WORDS];  // the boxes' nonempty flags
+  const int nR = Rp / TILE_R, rt = blockIdx.x;
+  const int r = rt * TILE_R + threadIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float ox = op[r], oy = op[Rp + r], oz = op[2 * Rp + r];
+  const float dx = dp[r], dy = dp[Rp + r], dz = dp[2 * Rp + r];
+  const float ix = 1.0f / (dx == 0.0f ? 1e-30f : dx);
+  const float iy = 1.0f / (dy == 0.0f ? 1e-30f : dy);
+  const float iz = 1.0f / (dz == 0.0f ? 1e-30f : dz);
+  for (int c0 = 0; c0 < nB; c0 += CULL_CHUNK) {
+    const int n = nB - c0 < CULL_CHUNK ? nB - c0 : CULL_CHUNK;
+    __syncthreads();  // the previous chunk's words are written out
+    for (int e = threadIdx.x; e < n * 6; e += TILE_R)
+      box[e] = boxes[(long)c0 * 6 + e];
+    const unsigned full =
+        __ballot_sync(0xffffffffu, threadIdx.x < n && nonempty[c0 + threadIdx.x]);
+    if (lane == 0) {
+      filled[warp] = full;
+      kept[warp] = 0u;
+    }
+    __syncthreads();
+    for (int b0 = 0; b0 < n; b0 += 32) {
+      const int m = n - b0 < 32 ? n - b0 : 32;
+      unsigned bits = 0u;
+#pragma unroll 4
+      for (int j = 0; j < m; ++j) {
+        const float* B = box + (b0 + j) * 6;
+        float t1 = (B[0] - ox) * ix, t2 = (B[3] - ox) * ix;
+        float tmin = max_nan(-CUDART_INF_F, min_nan(t1, t2));
+        float tmax = min_nan(CUDART_INF_F, max_nan(t1, t2));
+        t1 = (B[1] - oy) * iy;
+        t2 = (B[4] - oy) * iy;
+        tmin = max_nan(tmin, min_nan(t1, t2));
+        tmax = min_nan(tmax, max_nan(t1, t2));
+        t1 = (B[2] - oz) * iz;
+        t2 = (B[5] - oz) * iz;
+        tmin = max_nan(tmin, min_nan(t1, t2));
+        tmax = min_nan(tmax, max_nan(t1, t2));
+        bits |= (unsigned)(tmax >= tmin && tmax >= 0.0f) << j;
+      }
+      bits = __reduce_or_sync(0xffffffffu, bits);
+      if (lane == 0 && bits) atomicOr(&kept[b0 >> 5], bits);
+    }
+    __syncthreads();
+    const int b = threadIdx.x;
+    if (b < n)
+      mask[(long)(c0 + b) * nR + rt] =
+          (int)((kept[b >> 5] & filled[b >> 5]) >> (b & 31) & 1u);
+  }
+}
+
 // Resident blocks of a persistent sweep on the current device.
 template <int KIND>
 int sweep_resident_blocks() {
@@ -631,6 +762,16 @@ int rgt_fetch_rows(const float* table, int Tp, int C, const int* idx,
         (const float4*)table, Tp, idx, idx_stride, n, (float4*)out);
   else
     return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// Packed rays (3, Rp) with Rp = 256 nR, boxes (nB, 2, 3), nonempty (nB,)
+// bools -> the (nB, nR) int32 mask; the wrapper checks the shapes.
+int rgt_tile_cull(const float* op, const float* dp, int Rp, const float* boxes,
+                  const unsigned char* nonempty, int nB, int* mask,
+                  void* stream) {
+  tile_cull_kernel<<<Rp / TILE_R, TILE_R, 0, (cudaStream_t)stream>>>(
+      op, dp, Rp, boxes, nonempty, nB, mask);
   return (int)cudaGetLastError();
 }
 

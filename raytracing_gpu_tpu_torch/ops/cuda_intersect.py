@@ -1,4 +1,4 @@
-"""Kernel path of the intersection: packing, tile culling and the six
+"""Kernel path of the intersection: packing, tile culling and the seven
 hand-written CUDA kernels, each beside its plain PyTorch version.
 
 The counterpart of the JAX package's `ops/pallas_intersect.py`:
@@ -9,7 +9,9 @@ The counterpart of the JAX package's `ops/pallas_intersect.py`:
 - `tile_cull_mask_hierarchical` turns a batch of rays (packed in 256-ray
   tiles by `pack_rays`) into an (nT, nR) mask of (triangle tile, ray tile)
   pairs that may hold a hit: brute force, flat per-ray slab tests, or the
-  coarse-to-fine union-box hierarchy with interval tests below the top;
+  coarse-to-fine union-box hierarchy with interval tests below the top. The
+  per-ray slab tests (`tile_cull_mask_packed`) launch `tile_cull_kernel` on
+  CUDA tensors, a kernel with no Pallas counterpart;
 - `nearest_hit` (K1), `nearest_dist` (K2), `fetch_rows` (K3, differentiable
   with respect to its table: `FetchRows`), `any_hit` (K4),
   `nearest_hit_matmul` (K5) and `nearest_dist_matmul` (K6) launch the
@@ -29,14 +31,17 @@ The counterpart of the JAX package's `ops/pallas_intersect.py`:
   versions go through these two functions.
 
 Every integer result (perm, masks, worklists, winner slots) equals the JAX
-package's. The distances equal the JAX package's eager (op-by-op)
-evaluation bit for bit, since both evaluate the same unfused float32
-operations in the same order; under jit XLA:CPU contracts multiply-adds into
-FMAs, so the Pallas kernels in interpret mode differ by a few ulp. The
-matmul-form sweeps are the exception: their dot products are summed in a
-fixed left-to-right order that no XLA matmul promises, so against the JAX
-package they are held to a tolerance (as that package holds its own matmul
-backend to one); kernel and plain version still agree bit for bit.
+package's, but for a ray with a subnormal direction component: XLA:CPU
+treats it as zero (the 1e-30 stand-in), PyTorch and the kernels divide by
+it, and a slab test that meets 0 * inf culls the pair here. The distances
+equal the JAX package's eager (op-by-op) evaluation bit for bit, since both
+evaluate the same unfused float32 operations in the same order; under jit
+XLA:CPU contracts multiply-adds into FMAs, so the Pallas kernels in
+interpret mode differ by a few ulp. The matmul-form sweeps are the
+exception: their dot products are summed in a fixed left-to-right order
+that no XLA matmul promises, so against the JAX package they are held to a
+tolerance (as that package holds its own matmul backend to one); kernel and
+plain version still agree bit for bit.
 """
 
 from __future__ import annotations
@@ -61,7 +66,8 @@ _THIRD = float(np.float32(1.0 / 3.0))  # XLA's mean divides by 3 as * f32(1/3)
 # that the main path went through the kernels. The launches inside a CUDA
 # graph are counted at each replay of the graph, not at its capture.
 LAUNCHES = {"nearest_hit": 0, "nearest_dist": 0, "fetch_rows": 0,
-            "any_hit": 0, "nearest_hit_matmul": 0, "nearest_dist_matmul": 0}
+            "any_hit": 0, "nearest_hit_matmul": 0, "nearest_dist_matmul": 0,
+            "tile_cull": 0}
 
 
 def reset_launch_counts() -> None:
@@ -251,11 +257,41 @@ def _slab_hits_packed(op, dp, boxes):
     return (tmax >= tmin) & (tmax >= 0.0)
 
 
-def tile_cull_mask_packed(op, dp, tile_aabb, tile_nonempty):
-    """(nB, nR) int32 pair-tile mask from exact per-ray slab tests."""
+def tile_cull_mask_packed_plain(op, dp, tile_aabb, tile_nonempty):
+    """Plain version of `tile_cull_kernel`: (nB, nR) int32 pair-tile mask
+    from exact per-ray slab tests."""
     nr = op.shape[1] // TILE_R
     hit = _slab_hits_packed(op, dp, tile_aabb) & tile_nonempty[:, None]
     return hit.reshape(tile_aabb.shape[0], nr, TILE_R).any(2).to(torch.int32)
+
+
+def tile_cull_mask_packed(op, dp, tile_aabb, tile_nonempty):
+    """(nB, nR) int32 pair-tile mask from exact per-ray slab tests: entry
+    (b, rt) is 1 when box b is nonempty and some ray of ray tile rt enters
+    it at or ahead of its origin. op/dp (3, Rp) float32 with Rp % 256 == 0,
+    tile_aabb (nB, 2, 3) float32, tile_nonempty (nB,) bool. On the card
+    `tile_cull_kernel` (each ray read once, only the mask written), equal to
+    the plain version bit for bit; on CPU tensors the plain version. No
+    Pallas kernel stands behind it: the JAX package's cull is jnp."""
+    if _on_cpu(op, dp, tile_aabb, tile_nonempty):
+        return tile_cull_mask_packed_plain(op, dp, tile_aabb, tile_nonempty)
+    Rp, nB = op.shape[1], tile_aabb.shape[0]
+    if Rp % TILE_R:
+        raise ValueError(f"rays ({Rp}) must be padded to a multiple of {TILE_R}")
+    if 3 * Rp >= 1 << 31:
+        raise ValueError("tile_cull: the rays must stay under 2**31 elements")
+    for what, t, shape in (("op", op, (3, Rp)), ("dp", dp, (3, Rp)),
+                           ("tile_aabb", tile_aabb, (nB, 2, 3))):
+        _require(t, what, torch.float32, shape)
+    _require(tile_nonempty, "tile_nonempty", torch.bool, (nB,))
+    mask = torch.empty((nB, Rp // TILE_R), dtype=torch.int32, device=op.device)
+    if Rp and nB:
+        _check(_kernels()["tile_cull"](
+            op.data_ptr(), dp.data_ptr(), Rp, tile_aabb.data_ptr(),
+            tile_nonempty.data_ptr(), nB, mask.data_ptr(), _stream(op.device)),
+            "tile_cull")
+        LAUNCHES["tile_cull"] += 1
+    return mask
 
 
 def ray_tile_intervals(op, dp):
@@ -650,6 +686,8 @@ def _kernels() -> dict:
     fns = {name: sweep((f"rgt_{name}", lib)) for name in _SWEEP_OUT}
     fns["fetch_rows"] = ctypes.CFUNCTYPE(_I, _P, _I, _I, _P, _I, _I, _P, _P)(
         ("rgt_fetch_rows", lib))
+    fns["tile_cull"] = ctypes.CFUNCTYPE(_I, _P, _P, _I, _P, _P, _I, _P, _P)(
+        ("rgt_tile_cull", lib))
     fns["error_string"] = ctypes.CFUNCTYPE(ctypes.c_char_p, _I)(
         ("rgt_error_string", lib))
     return fns

@@ -318,4 +318,4 @@ def test_cuda_kernels_match_plain(cuda_device):
     assert torch.equal(ck.nearest_dist_matmul(*margs).view(torch.int32),
                        ck.nearest_dist_matmul_plain(*margs).view(torch.int32))
     assert {k: ck.LAUNCHES[k] - before[k] for k in before} == dict(
-        dict.fromkeys(before, 1), nearest_hit=2, fetch_rows=3)
+        dict.fromkeys(before, 1), nearest_hit=2, fetch_rows=3, tile_cull=0)
