@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from raytracing_gpu_tpu_torch.ops.fp import f32, sqrt_rn
+from raytracing_gpu_tpu_torch.utils.profiling import annotate
 
 TILE_R = 256
 TILE_T = 256
@@ -378,18 +379,22 @@ def tile_cull_mask_hierarchical(op, dp, pack: KernelPack, partitioning: str):
     """(nT, nR) int32 pair-tile mask for a partitioning mode: "none" all
     ones; "aabb" exact per-ray tests against every leaf box; "octree" exact
     tests against the top level (<= 64 union boxes) and interval tests below,
-    each level ANDed with its parent. Conservative in every mode."""
+    each level ANDed with its parent. Conservative in every mode. Span
+    "levels": the union boxes' build and the interval levels (the octree
+    mode on more than 64 tiles)."""
     nT = pack.tile_aabb.shape[0]
     nr = op.shape[1] // TILE_R
     if partitioning == "none":
         return torch.ones((nT, nr), dtype=torch.int32, device=op.device)
     if partitioning == "aabb" or nT <= 64:
         return tile_cull_mask_packed(op, dp, pack.tile_aabb, pack.tile_nonempty)
-    levels = build_tile_levels(pack.tile_aabb, pack.tile_nonempty)
+    with annotate("levels"):
+        levels = build_tile_levels(pack.tile_aabb, pack.tile_nonempty)
     mask = tile_cull_mask_packed(op, dp, *levels[0])
-    for boxes, nonempty in levels[1:] + [(pack.tile_aabb, pack.tile_nonempty)]:
-        child = _interval_slab(op, dp, boxes, nonempty)[0].to(torch.int32)
-        mask = child * torch.repeat_interleave(mask, 8, dim=0)[:boxes.shape[0]]
+    with annotate("levels"):
+        for boxes, nonempty in levels[1:] + [(pack.tile_aabb, pack.tile_nonempty)]:
+            child = _interval_slab(op, dp, boxes, nonempty)[0].to(torch.int32)
+            mask = child * torch.repeat_interleave(mask, 8, dim=0)[:boxes.shape[0]]
     return mask
 
 

@@ -57,7 +57,7 @@ import torch
 from raytracing_gpu_tpu_torch.config import ANY_HIT_OFF
 from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
 from raytracing_gpu_tpu_torch.ops.fp import f32, sqrt_rn
-from raytracing_gpu_tpu_torch.utils.profiling import annotate
+from raytracing_gpu_tpu_torch.utils.profiling import annotate, count
 
 INF = float("inf")
 KERNEL_BACKENDS = ("cuda", "cuda_matmul")
@@ -174,6 +174,13 @@ def _dir_length(dirs):
     return sqrt_rn(torch.where(d2 > 0.0, d2, 1.0))
 
 
+def _count_tiles(tmask) -> None:
+    """Into the recorder's counters: the (triangle tile, ray tile) pairs
+    that a cull keeps for the sweep, and all of its pairs."""
+    count("tile_pairs_kept", tmask)
+    count("tile_pairs", tmask.numel())
+
+
 @torch.no_grad()  # a sweep only selects
 def _kernel_sweep(origins, dirs, pack, mt_eps, self_hit_eps, backend,
                   partitioning, want_idx: bool, f2b_tiles: int = 0):
@@ -182,8 +189,9 @@ def _kernel_sweep(origins, dirs, pack, mt_eps, self_hit_eps, backend,
     card K1's and K5's pair has stride 2 (`ck.key_halves`), on the CPU it is
     contiguous: callers slice, test and pass them to `ck.fetch_rows`, which
     hold for either. Spans "cull" (the tile cull) and "sweep" (the listing
-    and sweep kernels), inside the taped call: a tape's replay stamps
-    nothing."""
+    and sweep kernels), and the counters of the kept pair tiles
+    (`_count_tiles`), inside the taped call: a tape's replay stamps and
+    counts nothing."""
     op, dp, _ = ck.pack_rays(origins, dirs)
     if backend == "cuda_matmul":
         # Möller–Trumbore is translation invariant, and the expanded triple
@@ -195,6 +203,7 @@ def _kernel_sweep(origins, dirs, pack, mt_eps, self_hit_eps, backend,
         with annotate("cull"):
             tmask = ck.tile_cull_mask_hierarchical(
                 oc, dp, pack._replace(tile_aabb=pack.tile_aabb - c), partitioning)
+        _count_tiles(tmask)
         sweep = (oc, dp, pack.v0 - c, pack.e1, pack.e2, tmask, mt_eps,
                  self_hit_eps)
         with annotate("sweep"):
@@ -203,6 +212,7 @@ def _kernel_sweep(origins, dirs, pack, mt_eps, self_hit_eps, backend,
             return ck.nearest_dist_matmul(*sweep), None
     with annotate("cull"):
         tmask = ck.tile_cull_mask_hierarchical(op, dp, pack, partitioning)
+    _count_tiles(tmask)
     sweep = (op, dp, pack.v0, pack.e1, pack.e2, tmask, mt_eps, self_hit_eps)
     with annotate("sweep"):
         if not want_idx:
@@ -348,6 +358,7 @@ def _any_hit_sweep(origins, dirs, pack, mt_eps, self_hit_eps, partitioning):
     op, dp, R = ck.pack_rays(origins, dirs)
     with annotate("cull"):
         tmask = ck.tile_cull_mask_hierarchical(op, dp, pack, partitioning)
+    _count_tiles(tmask)
     with annotate("sweep"):
         return ck.any_hit(op, dp, pack.v0, pack.e1, pack.e2, tmask, mt_eps,
                           self_hit_eps)[:R]

@@ -82,8 +82,10 @@ def trace(log_dir: str):
 # ---- the program's recorder ---------------------------------------------------
 
 # The device counters' slots: the rays each bounce step traces, after its
-# narrowing, and the ray slots it was given (`FramePlan._step`, `render._trace`).
-COUNTERS = ("live_rays", "ray_slots")
+# narrowing, and the ray slots it was given (`FramePlan._step`, `render._trace`);
+# the (triangle tile, ray tile) pairs that each tile cull keeps, and all of its
+# pairs (`ops.intersect._count_tiles`).
+COUNTERS = ("live_rays", "ray_slots", "tile_pairs_kept", "tile_pairs")
 CAPACITY = 1 << 20  # device stamps a recorder holds: 16 MB, ~350 `spheres` frames
 CALIBRATION_TRIES = 5
 OUTSIDE = "outside the program"  # an idle gap no host span encloses

@@ -14,6 +14,9 @@ On the CPU:
 - nesting rebuilt from a flat, interleaved tag list; the device clock put on
   the host clock from two calibrations, with their drift; idle gaps named by
   the innermost host span at their midpoint;
+- the hierarchical tile cull's `levels` spans, inside `cull` and only on
+  more than 64 triangle tiles; the counters `tile_pairs_kept` and
+  `tile_pairs` equal to the cull's mask, in a sweep and over a frame;
 - a captured step's span tree (the `StepPlan` on the CPU): `forward`,
   `backward` and `optimizer` under `step`; the fixed-depth loop's counters
   against a recount;
@@ -22,8 +25,9 @@ On the CPU:
   there is nothing sound to read.
 
 On the card (`cuda` marker): the frame graph's nodes with the recorder off
-and on, the device stamps of a graph frame against the interpreted frame's,
-and the image byte-equal with the recorder on and off.
+and on (on a scene of more than 64 triangle tiles too), the device stamps of
+a graph frame against the interpreted frame's, and the image byte-equal with
+the recorder on and off.
 """
 
 import importlib
@@ -38,6 +42,8 @@ import torch
 from raytracing_gpu_tpu_torch import RenderConfig, SceneRenderer
 from raytracing_gpu_tpu_torch.models.procedural import make_sphere_scene
 from raytracing_gpu_tpu_torch.ops import camera as camera_ops
+from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
+from raytracing_gpu_tpu_torch.ops import intersect
 from raytracing_gpu_tpu_torch.parallel import extract_params, make_train_step
 from raytracing_gpu_tpu_torch.utils import profiling
 from raytracing_gpu_tpu_torch.utils.profiling import Calibration, Span
@@ -52,6 +58,9 @@ R = importlib.import_module("raytracing_gpu_tpu_torch.render")
 # 160 make four, the last clamped
 SIZES = {"cpu": dict(width=12, height=12, n_lat=8, n_lon=12),
          "gpu": dict(width=8, height=8, n_lat=8, n_lon=12)}
+# two spheres of 8,820 triangles: 69 triangle tiles, so the cull's octree
+# levels run
+LEVELS = dict(width=12, height=12, n_lat=64, n_lon=70)
 CHUNK = 160
 BOUNCE_CHILDREN = ["collide", "shade", "update"]
 
@@ -69,10 +78,12 @@ def _cfg(mode, **kw):
     return RenderConfig(mode=mode, backend="cuda", ray_chunk=CHUNK, **kw)
 
 
-def _plan(mode, device="cpu"):
-    """A renderer of the mode's small scene and its frame plan (on the CPU
-    the plan is interpreted; `SceneRenderer` itself renders eagerly)."""
-    r = SceneRenderer(make_sphere_scene(**SIZES[mode]), _cfg(mode), device=device)
+def _plan(mode, device="cpu", sizes=None):
+    """A renderer of the mode's small scene (or of `sizes`) and its frame
+    plan (on the CPU the plan is interpreted; `SceneRenderer` itself renders
+    eagerly)."""
+    r = SceneRenderer(make_sphere_scene(**(sizes or SIZES[mode])), _cfg(mode),
+                      device=device)
     return r, r.plan or R.frame_plan(r.scene, r.cfg, r.depth, r.pack)
 
 
@@ -185,10 +196,11 @@ def test_live_rays_equal_the_eager_loops_recount(mode, monkeypatch):
         rec.clear()
         r.render_device()  # the eager loop counts in `render._trace`
         eager_counts = rec.export()["counters"]
-    want = {"live_rays": live, "ray_slots": slots}
-    assert graph_counts == eager_counts == want
+    assert graph_counts == eager_counts
+    assert (graph_counts["live_rays"], graph_counts["ray_slots"]) == (live, slots)
     assert sum(plan.last_frame.steps) == n_steps and slots == n_steps * CHUNK
     assert 0 < live <= slots
+    assert 0 < graph_counts["tile_pairs_kept"] <= graph_counts["tile_pairs"]
 
 
 # ---- the export from stamps: nesting, clocks, gaps ---------------------------
@@ -255,7 +267,8 @@ def test_a_recording_on_the_cpu_calibrates_and_exports_a_chrome_trace(tmp_path):
     assert len(rec.calibrations) == 2 and ex["calibration"]["drift_ns"] == 0
     assert [s.name for s in ex["device"]] == ["bounce", "bounce"]
     assert [s.name for s in ex["host"]] == ["frame.launch", "bounce", "bounce"]
-    assert ex["counters"] == {"live_rays": 2, "ray_slots": 3}
+    assert ex["counters"] == {"live_rays": 2, "ray_slots": 3, "tile_pairs_kept": 0,
+                              "tile_pairs": 0}
     assert ex["gaps"] and ex["gaps"][0][0] == profiling.OUTSIDE
     path = profiling.write_chrome_trace(ex, str(tmp_path / "p"))
     assert Path(path).name.startswith("program.")
@@ -283,6 +296,46 @@ def test_under_torch_profiler_a_span_is_a_host_range_of_its_trace(tmp_path):
         cats = {e.get("name"): e.get("cat") for e in json.load(f)["traceEvents"]}
     assert cats["rgt_unrecorded_span"] == cats["rgt_recorded_span"] == "cpu_op"
     assert [s.name for s in rec.export()["device"]] == ["rgt_recorded_span"]
+
+
+# ---- the tile cull's levels and pair counters ---------------------------------
+
+def _cull_batch(n_tris):
+    """A pack of `n_tris` small random triangles in the unit cube, and two
+    ray tiles from a corner: a narrow bundle along the diagonal, and rays
+    pointing away."""
+    g = torch.Generator().manual_seed(n_tris)
+    v = torch.rand((n_tris, 3, 3), generator=g)
+    v = v[:, :1] + 0.05 * (v - v[:, :1])
+    pack = ck.pack_geometry(v, torch.ones(n_tris, dtype=torch.bool))
+    origins = torch.full((512, 3), -1.0)
+    dirs = 1.0 + 0.01 * torch.rand((512, 3), generator=g)
+    dirs[256:] *= -1.0
+    return pack, origins, dirs
+
+
+@pytest.mark.parametrize("tiles", [4, 66])
+def test_levels_span_only_above_64_tiles_and_the_tile_pairs_counted(tiles):
+    pack, origins, dirs = _cull_batch(tiles * ck.TILE_T)
+    assert pack.tile_aabb.shape[0] == tiles
+    with profiling.recording("cpu") as rec:
+        for want_idx in (True, False):
+            intersect._kernel_sweep(origins, dirs, pack, 1e-7, 0.01, "cuda", "octree",
+                                    want_idx)
+        intersect._any_hit_sweep(origins, dirs, pack, 1e-7, 0.01, "octree")
+    ex = rec.export()
+    dev = ex["device"]
+    levels = [s for s in dev if s.name == "levels"]
+    # two a cull: the union boxes' build, and the interval levels below the top
+    assert len(levels) == (6 if tiles > 64 else 0)
+    assert all(dev[s.parent].name == "cull" for s in levels)
+    op, dp, _ = ck.pack_rays(origins, dirs)
+    mask = ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")
+    assert mask.shape == (tiles, op.shape[1] // ck.TILE_R)
+    kept = int(mask.sum())
+    assert ex["counters"]["tile_pairs_kept"] == 3 * kept
+    assert ex["counters"]["tile_pairs"] == 3 * mask.numel()
+    assert 0 < kept < mask.numel()
 
 
 # ---- a captured step on the CPU ----------------------------------------------
@@ -342,8 +395,8 @@ def test_fixed_depth_counters_equal_a_recount(monkeypatch):
         _train(False, 2, rec)
         seen = seen[len(seen) // 2:]  # the recorded second step's
     counters = rec.export()["counters"]
-    assert counters == {"live_rays": sum(a for a, _ in seen),
-                        "ray_slots": sum(n for _, n in seen)}
+    assert (counters["live_rays"], counters["ray_slots"]) == (
+        sum(a for a, _ in seen), sum(n for _, n in seen))
     # dead fixed-depth steps are counted: every step of every chunk
     assert counters["ray_slots"] == 3 * TRAIN_W * TRAIN_H * 4
     assert 0 < counters["live_rays"] < counters["ray_slots"]
@@ -352,7 +405,8 @@ def test_fixed_depth_counters_equal_a_recount(monkeypatch):
 # ---- the benchmark's readers --------------------------------------------------
 
 READERS = ("span_cull_ms.frame", "span_shade_ms.frame", "span_sweep_ms.frame",
-           "live_ray_pct.frame", "live_ray_pct.train", "step_idle_pct.train")
+           "live_ray_pct.frame", "live_ray_pct.train", "step_idle_pct.train",
+           "span_cull_levels_ms.frame", "tile_keep_pct.frame")
 
 
 def _tiny(name):
@@ -380,6 +434,10 @@ def test_frame_readers_on_a_recorded_stretch():
     c = stretch["counters"]
     assert got["live_ray_pct.frame"] == pytest.approx(100 * c["live_rays"] / c["ray_slots"])
     assert 0 < got["live_ray_pct.frame"] <= 100
+    assert got["tile_keep_pct.frame"] == pytest.approx(
+        100 * c["tile_pairs_kept"] / c["tile_pairs"])
+    assert 0 < got["tile_keep_pct.frame"] <= 100
+    assert got["span_cull_levels_ms.frame"] is None  # 36-triangle spheres: the flat cull
     per = spans.frames(stretch)
     assert len(per) == spans.RECORDED_FRAMES
     dev = stretch["device"]
@@ -439,25 +497,30 @@ def test_recorder_off_leaves_the_frame_graph_as_it_was():
     hold two stamp kernels a span and the counters' kernels more, and no
     other node."""
     _card()
-    for mode in ("cpu", "gpu"):
-        _, off = _plan(mode, "cuda")
+    for mode, sizes in (("cpu", None), ("gpu", None), ("cpu", LEVELS)):
+        _, off = _plan(mode, "cuda", sizes)
         with profiling.recording() as rec:
-            _, on = _plan(mode, "cuda")
-        _, off_again = _plan(mode, "cuda")
+            _, on = _plan(mode, "cuda", sizes)
+        _, off_again = _plan(mode, "cuda", sizes)
         assert off.piece_nodes == off_again.piece_nodes
         with profiling.recording("cpu") as cpu_rec:
-            _, cpu_plan = _plan(mode)
+            _, cpu_plan = _plan(mode, sizes=sizes)
             cpu_plan.render()
         dev = cpu_rec.export()["device"]
+        steps = sum(cpu_plan.last_frame.steps)
         in_bounces = [s for s in dev if s.name == "bounce" or _under(dev, s, "bounce")]
-        per_step = 2 * len(in_bounces) // sum(cpu_plan.last_frame.steps)
+        per_step = 2 * len(in_bounces) // steps
+        culls = sum(s.name == "cull" for s in dev) // steps
+        assert any(s.name == "levels" for s in dev) == (sizes is LEVELS)
         extra = {p: {t: d for t in set(on.piece_nodes[p]) | set(off.piece_nodes[p])
                      if (d := on.piece_nodes[p].get(t, 0) - off.piece_nodes[p].get(t, 0))}
                  for p in on.piece_nodes}
         # the counters' kernels: the live rays' sum, and the adds into two
-        # slots (4 kernel nodes in all, as torch 2.11 captures them)
+        # slots (4 kernel nodes in all, as torch 2.11 captures them); and
+        # alike a cull's kept pair tiles summed and added, and its pairs
+        # added (4 more a cull)
         assert extra == {"rays": {"kernel": 2}, "fold": {"kernel": 2},
-                         "step": {"kernel": per_step + 4}}, (extra, off.piece_nodes)
+                         "step": {"kernel": per_step + 4 + 4 * culls}}, (extra, off.piece_nodes)
         del rec
 
 
