@@ -5,8 +5,11 @@
 
 Builds the port's CUDA kernels from raytracing_gpu_tpu_torch/csrc with nvcc
 (one `nvcc -c` per source, side by side, then one link), checks each of the six intersection
-kernels and the tile cull (`tile_cull_kernel`, on the benchmark's `spheres`
-configuration's nearest-hit chunk and its 5-light shadow batch) against its
+kernels, the tile cull (`tile_cull_kernel`, on the benchmark's `spheres`
+configuration's nearest-hit chunk and its 5-light shadow batch) and the
+hierarchical tile cull (`tile_cull_levels_kernel`, on the benchmark's
+`sphereflake` configuration's nearest-hit chunk and its 3-light shadow batch,
+and on a chunk of the grid) against its
 plain PyTorch version on the card at the shapes the renders give it, and
 the frame graph's three condition kernels
 (`csrc/frame_loop.cu`: `loop_reset`, `bounce_condition`, `chunk_advance`)
@@ -209,7 +212,9 @@ REPLACES = {"nearest_hit": f"{PALLAS}:230", "nearest_dist": f"{PALLAS}:316",
             "fetch_rows": f"{PALLAS}:523", "any_hit": f"{PALLAS}:407",
             "nearest_hit_matmul": f"{PALLAS}:794",
             "nearest_dist_matmul": f"{PALLAS}:844",
-            "tile_cull": f"none: {PALLAS}:1038 tile_cull_mask_packed is jnp"}
+            "tile_cull": f"none: {PALLAS}:1038 tile_cull_mask_packed is jnp",
+            "tile_cull_levels":
+                f"none: {PALLAS}:1197 tile_cull_mask_hierarchical is jnp"}
 EPS = dict(mt_eps=1e-7, self_hit_eps=0.01)
 SPHERES = dict(n_lat=32, n_lon=40)  # 4,962 triangles
 ALIASING = 3
@@ -610,16 +615,17 @@ def shadows_of(scene, rays, pack):
 # FP32 operations per (ray, box) pair of the slab test: per axis two
 # subtractions, two multiplies and four min / max
 OPS_PER_RAY_BOX = 24
-BENCH_SPHERES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench",
-                             "configs", "spheres.json")
+BENCH_CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench",
+                             "configs")
 
 
-def bench_spheres(dev):
-    """The benchmark's `spheres` configuration at 512x512 (4,812 triangles,
-    19 tiles, 5 shadow lights), through the `.svati` text its cells parse."""
+def bench_scene(dev, name):
+    """A benchmark configuration at 512x512, through the `.svati` text its
+    cells parse: `spheres` (4,812 triangles, 19 tiles, 5 shadow lights) or
+    `sphereflake` (550,828 triangles, 2,152 tiles, 3 shadow lights)."""
     from portbench import scenes as bench_scenes
 
-    with open(BENCH_SPHERES) as f:
+    with open(os.path.join(BENCH_CONFIGS, f"{name}.json")) as f:
         config = json.load(f)
     text = bench_scenes.svati_text(bench_scenes.build(config, 512, 512, seed=0))
     return parse_scene_text(text).to(dev)
@@ -660,15 +666,83 @@ def check_cull(rays, pack, iters, what):
     return res
 
 
+def walk_tests(op, dp, levels) -> int:
+    """The (ray, box) slab tests of a per-ray walk down the levels: every
+    top box, then the 8 children of each box the ray entered."""
+    n0, tests = levels[0][0].shape[0], 0
+    nT = levels[-1][0].shape[0]
+    rb = max(ck.TILE_R, ((1 << 24) // nT) // ck.TILE_R * ck.TILE_R)
+    for r0 in range(0, op.shape[1], rb):
+        o, d = op[:, r0:r0 + rb], dp[:, r0:r0 + rb]
+        tests += n0 * o.shape[1]
+        hit = None
+        for boxes, nonempty in levels[:-1]:
+            h = ck._slab_hits_packed(o, d, boxes) & nonempty[:, None]
+            if hit is not None:
+                h &= hit.repeat_interleave(8, 0)[:boxes.shape[0]]
+            tests += 8 * int(h.sum())
+            hit = h
+    return tests
+
+
+def check_cull_levels(rays, pack, iters, what):
+    """The hierarchical tile cull against its plain twin on one packed ray
+    batch, down the union-box levels of the pack's leaf tiles: equal masks,
+    equal to its own second run and to the flat cull of the leaves. Bound:
+    each ray read once (24 bytes), the mask written once, the boxes read
+    once, against 24 operations per (ray, box) pair that a per-ray walk
+    tests (`walk_tests`); the flat cull over every leaf and the build of the
+    levels are timed beside it."""
+    op, dp, _ = ck.pack_rays(*rays)
+    leaves = (pack.tile_aabb, pack.tile_nonempty)
+    levels = ck.build_tile_levels(*leaves) + [leaves]
+    ref, plain_ms = timed_once(lambda: ck.tile_cull_mask_levels_plain(op, dp, levels))
+    got = ck.tile_cull_mask_levels(op, dp, levels)
+    again = ck.tile_cull_mask_levels(op, dp, levels)
+    flat = ck.tile_cull_mask_packed(op, dp, *leaves)
+    torch.cuda.synchronize()
+    for other, label in ((ref, "its plain twin"), (again, "its own second run"),
+                         (flat, "the flat cull of the leaves")):
+        n = int((got != other).sum())
+        if n or got.dtype != torch.int32:
+            raise AssertionError(f"tile_cull_levels ({what}): {n} mask entries "
+                                 f"differ from {label}")
+    Rp, (nT, nR) = op.shape[1], got.shape
+    kept = int(got.sum())
+    if not 0 < kept < got.numel():
+        raise AssertionError(f"tile_cull_levels ({what}): {kept} of {got.numel()} "
+                             "pairs kept; the check is vacuous")
+    tests = walk_tests(op, dp, levels)
+    n_boxes = sum(b.shape[0] for b, _ in levels)
+    bms, by = bound(tests * OPS_PER_RAY_BOX, Rp * 24 + nT * nR * 4 + n_boxes * 25)
+    res = dict(max_abs_err=0.0,
+               ms=cuda_ms(lambda: ck.tile_cull_mask_levels(op, dp, levels), iters),
+               device_ms=device_ms(lambda: ck.tile_cull_mask_levels(op, dp, levels)),
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+               library_device_ms=None, tests=tests,
+               flat_device_ms=device_ms(lambda: ck.tile_cull_mask_packed(op, dp, *leaves)),
+               build_device_ms=device_ms(lambda: ck.build_tile_levels(*leaves)))
+    say("kernels", f"tile_cull_levels ({what}): {Rp} rays, levels of "
+        f"{[b.shape[0] for b, _ in levels]} boxes, {tests} (ray, box) tests, {kept}/"
+        f"{got.numel()} pair tiles kept: equal to the plain twin (max_abs_err 0), "
+        f"to its own second run and to the flat cull; wrapper {res['ms']:.4f} ms, "
+        f"device only {res['device_ms']:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bms:.5f} ms ({by}); the flat cull of the leaves {res['flat_device_ms']:.4f} "
+        f"ms, the levels' build {res['build_device_ms']:.4f} ms")
+    return res
+
+
 def check_kernels(dev):
     """All six kernels and the tile cull against their plain versions on the
     card, at the shapes the renders give them. Returns {kernel: result dict} at the shapes
     of the path that claims the kernel: K1-K3 and K5/K6 on one 65,536-ray
     chunk of the sphere scene's CPU-mode primary rays and its 131,072 shadow
     rays, K4 on the shadow rays of one GPU-mode chunk. Every kernel is also
-    held on 4,096 rays of the 96k-triangle grid (interval hierarchy, 12 MB
+    held on 4,096 rays of the 96k-triangle grid (octree levels, 12 MB
     table) and every sweep on one full chunk of it (`grid_4096` and
-    `grid_chunk` in the result), K1 on exact ties and K3 on its edge cases."""
+    `grid_chunk` in the result), K1 on exact ties and K3 on its edge cases.
+    The hierarchical cull is held on the benchmark's `sphereflake` chunk and
+    its shadow batch, and on the grid's chunk."""
     chunk = RenderConfig().ray_chunk
     sph = make_sphere_scene(512, 512, **SPHERES).to(dev)
     sph_pack = scene_pack(sph)
@@ -677,7 +751,7 @@ def check_kernels(dev):
     say("kernels", f"sphere scene {sph.n_triangles} triangles; grid "
         f"{grid.n_triangles} triangles ({grid_pack.table.numel() * 4 / 2**20:.1f} MB table)")
     results = {}
-    bench = bench_spheres(dev)
+    bench = bench_scene(dev, "spheres")
     bench_pack = scene_pack(bench)
     bprim = cpu_primary_rays(bench, chunk)
     results["tile_cull"] = check_cull(shadows_of(bench, bprim, bench_pack),
@@ -685,6 +759,15 @@ def check_kernels(dev):
                                       "5-light shadow batch")
     results["tile_cull"]["nearest_chunk"] = check_cull(
         bprim, bench_pack, 50, "benchmark spheres, CPU-mode primary chunk")
+    flake = bench_scene(dev, "sphereflake")
+    flake_pack = scene_pack(flake)
+    fprim = cpu_primary_rays(flake, chunk)
+    results["tile_cull_levels"] = check_cull_levels(
+        fprim, flake_pack, 50, "benchmark sphereflake, CPU-mode primary chunk")
+    results["tile_cull_levels"]["shadow_batch"] = check_cull_levels(
+        shadows_of(flake, fprim, flake_pack), flake_pack, 50,
+        "benchmark sphereflake, its 3-light shadow batch")
+    del flake, flake_pack, fprim
     prim = cpu_primary_rays(sph, chunk)
     shad = shadows_of(sph, prim, sph_pack)
     results["nearest_hit"] = check_sweep("nearest_hit", prim, sph_pack, 20,
@@ -720,6 +803,7 @@ def check_kernels(dev):
     check_any_hit(shadows_of(grid, few, grid_pack), grid_pack, 10, "grid shadow rays")
     full = cpu_primary_rays(grid, chunk)
     what = "grid, one full chunk"
+    results["tile_cull_levels"]["grid_chunk"] = check_cull_levels(full, grid_pack, 50, what)
     results["grid_chunk"] = {
         name: check_sweep(name, full, grid_pack, 10, what) for name in SWEEPS}
     results["grid_chunk"]["any_hit"] = check_any_hit(full, grid_pack, 10, what)
@@ -1145,7 +1229,7 @@ def check_frame_loop(dev) -> dict:
 OWN_KERNELS = ("fetch_rows_kernel", "sweep_list_kernel") + tuple(
     f"sweep_kernel<{kind}>" for kind in ("NEAREST_HIT", "NEAREST_DIST", "ANY_HIT",
                                          "MATMUL_HIT", "MATMUL_DIST")) + (
-    "tile_cull_kernel",)
+    "tile_cull_kernel", "tile_cull_levels_kernel")
 
 
 def own_kernel(name: str):
@@ -1170,6 +1254,7 @@ def expected_kernels(counted) -> dict:
     want = {f"{k}_kernel": counted[k] for k in frame_graph.KERNELS}
     want["fetch_rows_kernel"] = counted["fetch_rows"]
     want["tile_cull_kernel"] = counted["tile_cull"]
+    want["tile_cull_levels_kernel"] = counted["tile_cull_levels"]
     for name, kind in SWEEP_KIND.items():
         want[f"sweep_kernel<{kind}>"] = counted[name]
     return {k: n for k, n in want.items() if n}
@@ -2650,6 +2735,8 @@ def check_all(dev, smi, kind, count, want_profile, ranks) -> int:
     spheres512 = make_sphere_scene(512, 512, **SPHERES)
     cpu_rays = 512 * 512 * 4
     k123 = ("nearest_hit", "nearest_dist", "fetch_rows", "tile_cull")
+    # beyond 64 triangle tiles the cull walks the octree levels
+    k123_levels = ("nearest_hit", "nearest_dist", "fetch_rows", "tile_cull_levels")
 
     # ---- CPU mode, backend "cuda": the sphere scene at 512x512, its frame
     # captured and replayed, held against the eager frame
@@ -2697,13 +2784,14 @@ def check_all(dev, smi, kind, count, want_profile, ranks) -> int:
     # ---- the 96k-triangle grid: interval hierarchy, large-table fetch, and
     # the front-to-back sweep (375 triangle tiles > 2 * 8)
     grid512 = make_sphere_grid_scene(512, 512)
-    _, grid_img, grid_counts, _, _ = check_graph_cell(
-        "CPU mode, grid 512x512, cuda", grid512, cfg, dev, smi, k123, n_primary=cpu_rays,
-        want_profile=want_profile)
+    _, grid_img, launches["grid"], _, _ = check_graph_cell(
+        "CPU mode, grid 512x512, cuda", grid512, cfg, dev, smi, k123_levels,
+        none=("tile_cull",), n_primary=cpu_rays, want_profile=want_profile)
+    grid_counts = launches["grid"]
     _, f2b_img, launches["front_to_back"], _, _ = check_graph_cell(
         "CPU mode, grid 512x512, cuda, f2b_tiles=8", grid512,
-        RenderConfig(backend="cuda", f2b_tiles=8), dev, smi, k123, n_primary=cpu_rays,
-        want_profile=want_profile)
+        RenderConfig(backend="cuda", f2b_tiles=8), dev, smi, k123_levels,
+        none=("tile_cull",), n_primary=cpu_rays, want_profile=want_profile)
     if launches["front_to_back"]["nearest_hit"] != 2 * grid_counts["nearest_hit"]:
         raise AssertionError("front-to-back did not double the nearest_hit launches: "
                              f"{launches['front_to_back']} against {grid_counts}")
@@ -2771,7 +2859,7 @@ def check_all(dev, smi, kind, count, want_profile, ranks) -> int:
     path_of = {"nearest_hit": "cpu_mode", "nearest_dist": "cpu_mode",
                "fetch_rows": "cpu_mode", "any_hit": "gpu_mode",
                "nearest_hit_matmul": "matmul", "nearest_dist_matmul": "matmul",
-               "tile_cull": "cpu_mode"}
+               "tile_cull": "cpu_mode", "tile_cull_levels": "grid"}
     kernels = []
     for name, p in path_of.items():
         entry = {"name": name, "route": "cuda", "source": SOURCE,
@@ -2789,6 +2877,13 @@ def check_all(dev, smi, kind, count, want_profile, ranks) -> int:
             entry["note"] = ("no TPU kernel: the JAX package culls in jnp; ms is the "
                              "benchmark spheres' 5-light shadow batch")
             entry["nearest_chunk"] = {k: results[name]["nearest_chunk"][k] for k in keys}
+        if name == "tile_cull_levels":
+            entry["note"] = ("no TPU kernel: the JAX package culls in jnp; ms is the "
+                             "benchmark sphereflake's CPU-mode primary chunk")
+            extra = keys + ("tests", "flat_device_ms", "build_device_ms")
+            entry.update({k: results[name][k] for k in extra[len(keys):]})
+            for shape in ("shadow_batch", "grid_chunk"):
+                entry[shape] = {k: results[name][shape][k] for k in extra}
         if name == "fetch_rows":
             entry["also_replaces"] = f"{PALLAS}:568"
             entry["backward"] = dict(

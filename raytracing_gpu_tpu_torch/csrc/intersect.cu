@@ -1,7 +1,8 @@
 // Hand-written Hopper kernels for the render's intersection hot path.
 //
-// Six kernels that replace Pallas kernels, and the tile cull, which replaces
-// none (tile_cull_kernel, below); one translation unit, one build
+// Six kernels that replace Pallas kernels, and the two tile culls, which
+// replace none (tile_cull_kernel, tile_cull_levels_kernel, below); one
+// translation unit, one build
 // (csrc/build.py):
 //   sweep_kernel<NEAREST_HIT>  (K1) replaces raytracing_gpu_tpu/ops/
 //                              pallas_intersect.py _nearest_kernel /
@@ -14,6 +15,8 @@
 //   sweep_kernel<MATMUL_DIST>  (K6) replaces _mxu_dist_kernel / nearest_dist_mxu
 //   tile_cull_kernel           the exact per-ray tile cull (jnp in the JAX
 //                              package: tile_cull_mask_packed)
+//   tile_cull_levels_kernel    the same test down the union-box levels (jnp
+//                              there: tile_cull_mask_hierarchical)
 // The five sweeps are one persistent kernel over one queue of work units
 // (see K1 / K2 below); they differ in what a thread keeps of its ray, in what
 // a unit stages and in how a unit's result joins the others.
@@ -631,6 +634,27 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return r;
 }
 
+// The slab test of one (ray, box) pair, in the order above.
+__device__ __forceinline__ bool slab_pass(float lx, float ly, float lz,
+                                          float hx, float hy, float hz,
+                                          float ox, float oy, float oz,
+                                          float ix, float iy, float iz) {
+  // max.NaN(-inf, x) and min.NaN(+inf, x) are x for every x, NaN too: the
+  // first axis starts the chain without them
+  float t1 = (lx - ox) * ix, t2 = (hx - ox) * ix;
+  float tmin = min_nan(t1, t2);
+  float tmax = max_nan(t1, t2);
+  t1 = (ly - oy) * iy;
+  t2 = (hy - oy) * iy;
+  tmin = max_nan(tmin, min_nan(t1, t2));
+  tmax = min_nan(tmax, max_nan(t1, t2));
+  t1 = (lz - oz) * iz;
+  t2 = (hz - oz) * iz;
+  tmin = max_nan(tmin, min_nan(t1, t2));
+  tmax = min_nan(tmax, max_nan(t1, t2));
+  return tmax >= tmin && tmax >= 0.0f;
+}
+
 __global__ void __launch_bounds__(TILE_R)
     tile_cull_kernel(const float* __restrict__ op, const float* __restrict__ dp,
                      int Rp, const float* __restrict__ boxes,
@@ -665,18 +689,9 @@ __global__ void __launch_bounds__(TILE_R)
 #pragma unroll 4
       for (int j = 0; j < m; ++j) {
         const float* B = box + (b0 + j) * 6;
-        float t1 = (B[0] - ox) * ix, t2 = (B[3] - ox) * ix;
-        float tmin = max_nan(-CUDART_INF_F, min_nan(t1, t2));
-        float tmax = min_nan(CUDART_INF_F, max_nan(t1, t2));
-        t1 = (B[1] - oy) * iy;
-        t2 = (B[4] - oy) * iy;
-        tmin = max_nan(tmin, min_nan(t1, t2));
-        tmax = min_nan(tmax, max_nan(t1, t2));
-        t1 = (B[2] - oz) * iz;
-        t2 = (B[5] - oz) * iz;
-        tmin = max_nan(tmin, min_nan(t1, t2));
-        tmax = min_nan(tmax, max_nan(t1, t2));
-        bits |= (unsigned)(tmax >= tmin && tmax >= 0.0f) << j;
+        bits |= (unsigned)slab_pass(B[0], B[1], B[2], B[3], B[4], B[5], ox, oy,
+                                    oz, ix, iy, iz)
+                << j;
       }
       bits = __reduce_or_sync(0xffffffffu, bits);
       if (lane == 0 && bits) atomicOr(&kept[b0 >> 5], bits);
@@ -687,6 +702,207 @@ __global__ void __launch_bounds__(TILE_R)
       mask[(long)(c0 + b) * nR + rt] =
           (int)((kept[b >> 5] & filled[b >> 5]) >> (b & 31) & 1u);
   }
+}
+
+// The hierarchical tile cull: the (leaf tile, ray tile) mask of ops/
+// cuda_intersect.tile_cull_mask_levels, over the union boxes that
+// build_tile_levels groups above the leaf tiles (coarse to fine: a top of at
+// most 64 boxes, each box's children 8b..8b+7 one level down, the leaves
+// last). Entry (b, rt) = 1 when some ray of ray tile rt passes the slab test
+// above on leaf b and on every ancestor of b, each of them nonempty. A
+// parent's box contains its children's and every operation of the chain
+// rounds monotonically, so a ray that passes a leaf passes its ancestors:
+// the mask is tile_cull_kernel's over the leaves alone, but where a
+// subnormal direction component makes a NaN in one box and not in another.
+//
+// It replaces no Pallas kernel: the JAX package's hierarchical cull is jnp
+// (raytracing_gpu_tpu/ops/pallas_intersect.py, tile_cull_mask_hierarchical,
+// whose levels below the top test a whole ray tile at once, as one box of
+// origins times one box of directions). The port ran the same tensor ops
+// (~280 kernels a cull). That interval bound is wide on the mirror and
+// shadow rays of a bounce, whose origins spread and whose directions fan
+// out: on the SPD sphereflake it kept 4x the pair tiles that some ray of
+// the tile enters (PERF.md section 7), and the sweeps ran them all.
+//
+// What bounds it: each ray's 24 bytes read once and the (leaves x ray
+// tiles) int32 mask written once, against ~30 FP32 instructions per (ray,
+// box) actually tested: the top's boxes, then the 8 children of each box a
+// ray entered. On the sphereflake (34 + 269 + 2,152 boxes) a camera ray of
+// the frame's middle enters 12 top boxes, 27 middle ones and 36 leaves:
+// 341 tests, against 2,152 for the flat cull of the leaves.
+//
+// The design: one block per ray tile, one ray per thread, the ray and inv
+// computed once as in tile_cull_kernel. The top level (<= 64 boxes) is
+// staged in shared memory and tested by every thread in step, as
+// broadcasts, into a 64-bit word of hits. Below it each warp walks, depth
+// first, the union of its 32 rays' trees: the next box that some lane
+// entered, by one __reduce_or_sync over the lanes' 8-bit verdicts on a
+// group of siblings. Every lane tests that box's 8 children (uniform loads:
+// a group is 8 consecutive boxes, 192 bytes) and ANDs them with its own
+// verdict on the box, kept in registers (the top's 64 bits, then 8 bits a
+// level), so a lane keeps only what its own chain passes. The tree is
+// regular (box i's children are 8i..8i+7): the walk keeps a level, a group
+// and 8 bits of pending siblings a level, and needs no stack. A group's 24
+// float2 box loads and its 8 nonempty flags (one 8-byte load) are issued
+// before any test: -fmad=false leaves ~50 instructions a test, and with
+// few warps a short-circuit load (flag, then box) costs two memory
+// latencies a child. At a group's end the warp ORs the leaves its lanes
+// entered into a shared bitmap; after one barrier the block writes its
+// column of the mask. No (boxes x rays) tensor is ever stored.
+//
+// Why the warp's union and not each ray's own walk: a warp of rays that
+// each walk alone takes as many steps as its busiest ray, every step a
+// gather from boxes the other lanes do not need, and the loads wait on
+// the branch that chose them. The union costs 5% more tests than the rays'
+// own walks on the sphereflake's nearest chunk (23.4 M against 22.4 M) and
+// every load is a broadcast. Measured, device time per launch (NVIDIA H100
+// 80GB HBM3, 700 W; sphereflake nearest chunk / its shadow batch / a grid
+// chunk, us): each thread its own walk 326 / 432 / 54, the same with 8
+// lanes a ray (a lane a child) in blocks of 1,024 176 / 304 / 40, the
+// warp's union with short-circuit loads 109 / 193 / 30, with every load
+// first 91 / 180 / 25, and with a full group's flags in one 8-byte load and
+// its boxes at fixed offsets (this kernel) 70 / 140 / 19.5; the flat cull
+// of the leaves 224 / 622 / 41. At 70 us the chunk's 23.4 M tests run at
+// ~8x their operations bound: ~50 instructions a test with 4 warps a
+// scheduler (256 blocks on 132 SMs).
+//
+// Bit-equal to the twin: the same slab chain (slab_pass, -fmad=false, IEEE
+// division, max.NaN / min.NaN) on the same boxes, ANDed with the ray's own
+// parent verdicts.
+#define CULL_LEVELS 8  // top to leaves: 64 * 8^7 leaf tiles at most
+#define CULL_TOP 64    // boxes of the top level at most (build_tile_levels)
+
+struct CullLevels {
+  const float* boxes[CULL_LEVELS];             // (size, 2, 3): lo xyz, hi xyz
+  const unsigned char* nonempty[CULL_LEVELS];  // (size,) bools
+  int size[CULL_LEVELS];
+  int n;  // levels; level n - 1 is the leaf tiles
+};
+
+// The lane's verdicts (bit j) on the n <= 8 boxes B[0..n) with flags F.
+__device__ __forceinline__ unsigned group_pass(const float* __restrict__ B,
+                                               const unsigned char* __restrict__ F,
+                                               int n, float ox, float oy,
+                                               float oz, float ix, float iy,
+                                               float iz) {
+  float2 box[8][3];
+  unsigned long long flags = 0ull;
+  if (n == 8) {  // F is 8-byte aligned (the wrapper checks the level's flags)
+    flags = __ldg((const unsigned long long*)F);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) box[j][k] = __ldg((const float2*)(B + 6 * j) + k);
+  } else {  // a level's last group: clamped, then masked
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int jj = j < n ? j : n - 1;
+      flags |= (unsigned long long)(j < n && __ldg(F + jj)) << (8 * j);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) box[j][k] = __ldg((const float2*)(B + 6 * jj) + k);
+    }
+  }
+  unsigned bits = 0u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const unsigned t = slab_pass(box[j][0].x, box[j][0].y, box[j][1].x,
+                                 box[j][1].y, box[j][2].x, box[j][2].y, ox, oy,
+                                 oz, ix, iy, iz);
+    bits |= ((unsigned)((flags >> (8 * j)) & 0xffull) != 0u ? t : 0u) << j;
+  }
+  return bits;
+}
+
+__global__ void __launch_bounds__(TILE_R)
+    tile_cull_levels_kernel(const float* __restrict__ op,
+                            const float* __restrict__ dp, int Rp, CullLevels L,
+                            int* __restrict__ mask) {
+  extern __shared__ unsigned kept[];  // OR over the block, bit = leaf tile
+  __shared__ float top[CULL_TOP * 6];
+  __shared__ unsigned top_filled[2];  // the top's nonempty flags
+  __shared__ const float* boxes[CULL_LEVELS];
+  __shared__ const unsigned char* filled[CULL_LEVELS];
+  __shared__ int size[CULL_LEVELS];
+  const unsigned full = 0xffffffffu;
+  const int nR = Rp / TILE_R, rt = blockIdx.x;
+  const int r = rt * TILE_R + threadIdx.x;
+  const int last = L.n - 1, nT = L.size[last], n0 = L.size[0];
+  for (int w = threadIdx.x; w < (nT + 31) >> 5; w += TILE_R) kept[w] = 0u;
+  for (int e = threadIdx.x; e < n0 * 6; e += TILE_R) top[e] = L.boxes[0][e];
+  if (threadIdx.x < CULL_LEVELS && threadIdx.x < L.n) {
+    boxes[threadIdx.x] = L.boxes[threadIdx.x];
+    filled[threadIdx.x] = L.nonempty[threadIdx.x];
+    size[threadIdx.x] = L.size[threadIdx.x];
+  }
+  if (threadIdx.x < 32) {
+    const int j = threadIdx.x;
+    const unsigned lo = __ballot_sync(full, j < n0 && L.nonempty[0][j]);
+    const unsigned hi = __ballot_sync(full, j + 32 < n0 && L.nonempty[0][j + 32]);
+    if (j == 0) {
+      top_filled[0] = lo;
+      top_filled[1] = hi;
+    }
+  }
+  const float ox = op[r], oy = op[Rp + r], oz = op[2 * Rp + r];
+  const float dx = dp[r], dy = dp[Rp + r], dz = dp[2 * Rp + r];
+  const float ix = 1.0f / (dx == 0.0f ? 1e-30f : dx);
+  const float iy = 1.0f / (dy == 0.0f ? 1e-30f : dy);
+  const float iz = 1.0f / (dz == 0.0f ? 1e-30f : dz);
+  __syncthreads();
+
+  unsigned long long h0 = 0ull;  // the lane's top boxes entered
+#pragma unroll 4
+  for (int j = 0; j < n0; ++j) {
+    const float* B = top + j * 6;
+    h0 |= (unsigned long long)slab_pass(B[0], B[1], B[2], B[3], B[4], B[5],
+                                        ox, oy, oz, ix, iy, iz)
+          << j;
+  }
+  h0 &= (unsigned long long)top_filled[1] << 32 | top_filled[0];
+  const unsigned lo = __reduce_or_sync(full, (unsigned)h0);
+  const unsigned hi = __reduce_or_sync(full, (unsigned)(h0 >> 32));
+  const bool leader = (threadIdx.x & 31) == 0;
+  unsigned long long todo = (unsigned long long)hi << 32 | lo;  // top, warp
+  unsigned long long pend = 0ull;  // 8 bits a level: siblings still to enter
+  unsigned long long own = 0ull;   // 8 bits a level: the lane's verdicts
+  int l = 0, base = 0;             // the group of siblings: level, first box
+  for (;;) {
+    if (l == 0) {  // the children of the next top box some lane entered
+      if (!todo) break;
+      base = 8 * (__ffsll((long long)todo) - 1);
+      todo &= todo - 1ull;
+      l = 1;
+    }
+    const int p = base >> 3;  // the parent, one level up
+    const bool in_parent =
+        l == 1 ? (h0 >> p) & 1ull : (own >> (8 * (l - 1) + (p & 7))) & 1ull;
+    const int n = size[l] - base < 8 ? size[l] - base : 8;
+    unsigned mine = group_pass(boxes[l] + 6 * base, filled[l] + base, n, ox,
+                               oy, oz, ix, iy, iz);
+    if (!in_parent) mine = 0u;
+    const unsigned any = __reduce_or_sync(full, mine);
+    if (l == last) {  // leaves: base is a multiple of 8, in one word
+      if (leader && any) atomicOr(&kept[base >> 5], any << (base & 31));
+      --l;
+      base = (base >> 3) & ~7;
+    } else {
+      pend |= (unsigned long long)any << (8 * l);
+      own = (own & ~(0xffull << (8 * l))) | (unsigned long long)mine << (8 * l);
+    }
+    while (l >= 1 && !((pend >> (8 * l)) & 0xffull)) {  // climb
+      --l;
+      base = (base >> 3) & ~7;
+    }
+    if (l >= 1) {  // descend into the next sibling some lane entered
+      const int bit = __ffs((unsigned)(pend >> (8 * l)) & 0xffu) - 1;
+      pend &= ~(1ull << (8 * l + bit));
+      base = 8 * (base + bit);
+      ++l;
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < nT; b += TILE_R)
+    mask[(long)b * nR + rt] = (int)(kept[b >> 5] >> (b & 31) & 1u);
 }
 
 // Resident blocks of a persistent sweep on the current device.
@@ -772,6 +988,31 @@ int rgt_tile_cull(const float* op, const float* dp, int Rp, const float* boxes,
                   void* stream) {
   tile_cull_kernel<<<Rp / TILE_R, TILE_R, 0, (cudaStream_t)stream>>>(
       op, dp, Rp, boxes, nonempty, nB, mask);
+  return (int)cudaGetLastError();
+}
+
+// Packed rays (3, Rp) with Rp = 256 nR; 2 to 8 union-box levels, top to
+// leaves: boxes[l] (sizes[l], 2, 3) floats and nonempty[l] (sizes[l],)
+// bools, 8-byte aligned device pointers in host arrays, with sizes[0] <= 64
+// and sizes[l] = ceil(sizes[l + 1] / 8) -> the (sizes[n_levels - 1], nR)
+// int32 mask. The wrapper checks the shapes, and that the leaves' bitmap
+// fits in 46 KB beside the kernel's own 1.7 KB (376,832 leaf tiles).
+int rgt_tile_cull_levels(const float* op, const float* dp, int Rp,
+                         int n_levels, const void* const* boxes,
+                         const void* const* nonempty, const int* sizes,
+                         int* mask, void* stream) {
+  if (n_levels < 2 || n_levels > CULL_LEVELS || sizes[0] > CULL_TOP)
+    return (int)cudaErrorInvalidValue;
+  CullLevels L = {};
+  L.n = n_levels;
+  for (int l = 0; l < n_levels; ++l) {
+    L.boxes[l] = (const float*)boxes[l];
+    L.nonempty[l] = (const unsigned char*)nonempty[l];
+    L.size[l] = sizes[l];
+  }
+  const size_t smem = (size_t)((sizes[n_levels - 1] + 31) / 32) * sizeof(unsigned);
+  tile_cull_levels_kernel<<<Rp / TILE_R, TILE_R, smem, (cudaStream_t)stream>>>(
+      op, dp, Rp, L, mask);
   return (int)cudaGetLastError();
 }
 

@@ -9,9 +9,10 @@ The counterpart of the JAX package's `ops/pallas_intersect.py`:
 - `tile_cull_mask_hierarchical` turns a batch of rays (packed in 256-ray
   tiles by `pack_rays`) into an (nT, nR) mask of (triangle tile, ray tile)
   pairs that may hold a hit: brute force, flat per-ray slab tests, or the
-  coarse-to-fine union-box hierarchy with interval tests below the top. The
-  per-ray slab tests (`tile_cull_mask_packed`) launch `tile_cull_kernel` on
-  CUDA tensors, a kernel with no Pallas counterpart;
+  same per-ray tests down the coarse-to-fine union-box hierarchy. On CUDA
+  tensors the flat tests (`tile_cull_mask_packed`) launch
+  `tile_cull_kernel`, the hierarchy (`tile_cull_mask_levels`)
+  `tile_cull_levels_kernel`: kernels with no Pallas counterpart;
 - `nearest_hit` (K1), `nearest_dist` (K2), `fetch_rows` (K3, differentiable
   with respect to its table: `FetchRows`), `any_hit` (K4),
   `nearest_hit_matmul` (K5) and `nearest_dist_matmul` (K6) launch the
@@ -33,7 +34,13 @@ The counterpart of the JAX package's `ops/pallas_intersect.py`:
 Every integer result (perm, masks, worklists, winner slots) equals the JAX
 package's, but for a ray with a subnormal direction component: XLA:CPU
 treats it as zero (the 1e-30 stand-in), PyTorch and the kernels divide by
-it, and a slab test that meets 0 * inf culls the pair here. The distances
+it, and a slab test that meets 0 * inf culls the pair here. The one mask
+that is not the JAX package's is the hierarchy's beyond 64 tiles: that
+package tests the levels below the top with interval bounds of whole ray
+tiles, the port tests each ray, so the port's "octree" mask equals the JAX
+package's "aabb" mask and lies inside its "octree" mask. Every mask keeps
+each pair tile that holds an accepted pair, so the winners, distances and
+flags do not depend on it. The distances
 equal the JAX package's eager (op-by-op) evaluation bit for bit, since both
 evaluate the same unfused float32 operations in the same order; under jit
 XLA:CPU contracts multiply-adds into FMAs, so the Pallas kernels in
@@ -61,6 +68,8 @@ TILE_R = 256
 TILE_T = 256
 INF = float("inf")
 _THIRD = float(np.float32(1.0 / 3.0))  # XLA's mean divides by 3 as * f32(1/3)
+_CULL_LEVELS = 8  # levels `tile_cull_levels_kernel` takes (CULL_LEVELS)
+_CULL_LEAVES = 46 * 1024 * 8  # leaf tiles whose bitmap fits its block's 48 KB of shared memory
 
 # Launch counts of the kernels, by wrapper name. A wrapper adds one exactly
 # where it launches its kernel (never on its plain path), so a run can show
@@ -68,7 +77,7 @@ _THIRD = float(np.float32(1.0 / 3.0))  # XLA's mean divides by 3 as * f32(1/3)
 # graph are counted at each replay of the graph, not at its capture.
 LAUNCHES = {"nearest_hit": 0, "nearest_dist": 0, "fetch_rows": 0,
             "any_hit": 0, "nearest_hit_matmul": 0, "nearest_dist_matmul": 0,
-            "tile_cull": 0}
+            "tile_cull": 0, "tile_cull_levels": 0}
 
 
 def reset_launch_counts() -> None:
@@ -375,13 +384,87 @@ def build_tile_levels(tile_aabb, tile_nonempty, branching: int = 8,
     return levels[::-1]
 
 
+def tile_cull_mask_levels_plain(op, dp, levels):
+    """Plain version of `tile_cull_levels_kernel`: the (nT, nR) int32
+    pair-tile mask of per-ray slab tests down the levels, each box's test
+    ANDed with the ray's own verdict on its parent (box i // 8 of the level
+    above), the leaves' mask kept. Dense: every box is tested on every ray,
+    in blocks of whole ray tiles that bound the (boxes x rays) tensors."""
+    nT, Rp = levels[-1][0].shape[0], op.shape[1]
+    rb = max(TILE_R, (_PLAIN_PAIRS // nT) // TILE_R * TILE_R)
+    cols = [op.new_zeros((nT, 0), dtype=torch.bool)]
+    for r0 in range(0, Rp, rb):
+        o, d = op[:, r0:r0 + rb], dp[:, r0:r0 + rb]
+        hit = None
+        for boxes, nonempty in levels:
+            h = _slab_hits_packed(o, d, boxes) & nonempty[:, None]
+            if hit is not None:
+                h &= hit.repeat_interleave(8, 0)[:boxes.shape[0]]
+            hit = h
+        cols.append(hit.reshape(nT, -1, TILE_R).any(2))
+    return torch.cat(cols, 1).to(torch.int32)
+
+
+def tile_cull_mask_levels(op, dp, levels):
+    """(nT, nR) int32 pair-tile mask from exact per-ray slab tests down a
+    union-box hierarchy: entry (b, rt) is 1 when some ray of ray tile rt
+    passes the slab test of leaf b and of every ancestor of b, each of them
+    nonempty. `levels` is `build_tile_levels`' list (coarse to fine, at most
+    64 boxes on top, box i of a level the union of boxes 8i..8i+7 below)
+    followed by the leaves: (boxes (n, 2, 3) float32, nonempty (n,) bool)
+    each. A parent's box holds its children's, so this is the flat per-ray
+    mask of the leaves (`tile_cull_mask_packed`) but where a subnormal
+    direction component makes a NaN in one box of the chain and not in
+    another. On the card `tile_cull_levels_kernel` (each ray read once, only
+    the boxes below the ones it entered tested, only the mask written),
+    equal to the plain version bit for bit; on CPU tensors the plain
+    version. The JAX package's hierarchy is jnp."""
+    flat = [t for level in levels for t in level]
+    if _on_cpu(op, dp, *flat):
+        return tile_cull_mask_levels_plain(op, dp, levels)
+    Rp, sizes = op.shape[1], [boxes.shape[0] for boxes, _ in levels]
+    if Rp % TILE_R:
+        raise ValueError(f"rays ({Rp}) must be padded to a multiple of {TILE_R}")
+    if 3 * Rp >= 1 << 31:
+        raise ValueError("tile_cull_levels: the rays must stay under 2**31 elements")
+    if not 2 <= len(levels) <= _CULL_LEVELS or sizes[0] > 64:
+        raise ValueError(f"tile_cull_levels: 2 to {_CULL_LEVELS} levels under a "
+                         f"top of at most 64 boxes, got sizes {sizes}")
+    if any(a != -(-b // 8) for a, b in zip(sizes, sizes[1:])):
+        raise ValueError(f"tile_cull_levels: each level must group the next by 8, "
+                         f"got sizes {sizes}")
+    if sizes[-1] > _CULL_LEAVES:
+        raise ValueError(f"tile_cull_levels: {sizes[-1]} leaf tiles, more than "
+                         f"{_CULL_LEAVES}")
+    for what, t, shape in (("op", op, (3, Rp)), ("dp", dp, (3, Rp))):
+        _require(t, what, torch.float32, shape)
+    for k, (boxes, nonempty) in enumerate(levels):
+        _require(boxes, f"levels[{k}] boxes", torch.float32, (sizes[k], 2, 3))
+        _require(nonempty, f"levels[{k}] nonempty", torch.bool, (sizes[k],))
+        if boxes.data_ptr() % 8 or nonempty.data_ptr() % 8:
+            raise ValueError(f"levels[{k}] must be 8-byte aligned")
+    mask = torch.empty((sizes[-1], Rp // TILE_R), dtype=torch.int32, device=op.device)
+    if Rp and sizes[-1]:
+        n = len(levels)
+        _check(_kernels()["tile_cull_levels"](
+            op.data_ptr(), dp.data_ptr(), Rp, n,
+            (_P * n)(*(b.data_ptr() for b, _ in levels)),
+            (_P * n)(*(f.data_ptr() for _, f in levels)),
+            (_I * n)(*sizes), mask.data_ptr(), _stream(op.device)),
+            "tile_cull_levels")
+        LAUNCHES["tile_cull_levels"] += 1
+    return mask
+
+
 def tile_cull_mask_hierarchical(op, dp, pack: KernelPack, partitioning: str):
     """(nT, nR) int32 pair-tile mask for a partitioning mode: "none" all
     ones; "aabb" exact per-ray tests against every leaf box; "octree" exact
-    tests against the top level (<= 64 union boxes) and interval tests below,
-    each level ANDed with its parent. Conservative in every mode. Span
-    "levels": the union boxes' build and the interval levels (the octree
-    mode on more than 64 tiles)."""
+    per-ray tests down the union-box levels above the leaves when there are
+    more than 64 (`tile_cull_mask_levels`), else the flat test. Conservative
+    in every mode; "aabb" and "octree" keep the same pair tiles but where a
+    subnormal direction component meets a box face. Span "levels": the
+    union boxes' build and the cull down them (the octree mode on more than
+    64 tiles)."""
     nT = pack.tile_aabb.shape[0]
     nr = op.shape[1] // TILE_R
     if partitioning == "none":
@@ -390,12 +473,8 @@ def tile_cull_mask_hierarchical(op, dp, pack: KernelPack, partitioning: str):
         return tile_cull_mask_packed(op, dp, pack.tile_aabb, pack.tile_nonempty)
     with annotate("levels"):
         levels = build_tile_levels(pack.tile_aabb, pack.tile_nonempty)
-    mask = tile_cull_mask_packed(op, dp, *levels[0])
-    with annotate("levels"):
-        for boxes, nonempty in levels[1:] + [(pack.tile_aabb, pack.tile_nonempty)]:
-            child = _interval_slab(op, dp, boxes, nonempty)[0].to(torch.int32)
-            mask = child * torch.repeat_interleave(mask, 8, dim=0)[:boxes.shape[0]]
-    return mask
+        return tile_cull_mask_levels(
+            op, dp, levels + [(pack.tile_aabb, pack.tile_nonempty)])
 
 
 def tile_worklist(tile_mask):
@@ -693,6 +772,8 @@ def _kernels() -> dict:
         ("rgt_fetch_rows", lib))
     fns["tile_cull"] = ctypes.CFUNCTYPE(_I, _P, _P, _I, _P, _P, _I, _P, _P)(
         ("rgt_tile_cull", lib))
+    fns["tile_cull_levels"] = ctypes.CFUNCTYPE(
+        _I, _P, _P, _I, _I, _P, _P, _P, _P, _P)(("rgt_tile_cull_levels", lib))
     fns["error_string"] = ctypes.CFUNCTYPE(ctypes.c_char_p, _I)(
         ("rgt_error_string", lib))
     return fns

@@ -172,7 +172,11 @@ def f2b_case():
     top, tdp, _ = ck.pack_rays(torch.from_numpy(o), torch.from_numpy(d))
     tm = ck.tile_cull_mask_hierarchical(top, tdp, tpack, "octree")
     jm = pk.tile_cull_mask_hierarchical(jop, jdp, jpack, "octree")
-    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    # the port tests each ray down the levels: the JAX package's exact
+    # per-ray ("aabb") mask, inside its own "octree" mask
+    np.testing.assert_array_equal(
+        tm.numpy(), np.asarray(pk.tile_cull_mask_hierarchical(jop, jdp, jpack, "aabb")))
+    assert (tm.numpy() <= np.asarray(jm)).all()
     assert tm.shape[0] >= 6
     return jpack, tpack, (jop, jdp, jm), (top, tdp, tm)
 

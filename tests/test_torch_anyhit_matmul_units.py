@@ -346,7 +346,8 @@ def test_fetch_rows_checks_a_table_once_where_it_is_made():
 def test_sweeps_share_one_wrapper_and_no_worklist():
     """Every sweep launches through `_launch_sweep` on the pair-tile mask
     itself; the ordered worklist is on no launch path."""
-    assert set(ck._SWEEP_OUT) == set(ck.LAUNCHES) - {"fetch_rows", "tile_cull"}
+    assert set(ck._SWEEP_OUT) == set(ck.LAUNCHES) - {"fetch_rows", "tile_cull",
+                                                     "tile_cull_levels"}
     assert not hasattr(ck, "_ray_worklist")
     assert ck._SWEEP_OUT["any_hit"] == (torch.bool, 2)  # + live and walked counts
     import inspect

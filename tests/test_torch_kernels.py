@@ -131,8 +131,11 @@ def test_centroids_round_like_jnp_mean():
 
 def test_octree_levels_cull_beyond_the_leaf_test():
     """Non-vacuity of the hierarchy on the >64-tile scene: narrow bundles
-    from several viewpoints make the exact top-level test remove pair tiles
-    that the leaf interval test alone keeps, and the JAX package agrees."""
+    from several viewpoints make the per-ray tests down the levels remove
+    pair tiles that the leaf interval test alone keeps. The port's octree
+    mask is the JAX package's "aabb" mask (exact per-ray tests of the
+    leaves) and lies inside its "octree" mask, whose levels below the top
+    test whole ray tiles by intervals."""
     make, kw = SCENES["grid"]
     dev = scene_to_device(make(**kw))
     g = dev.geometry
@@ -150,7 +153,9 @@ def test_octree_levels_cull_beyond_the_leaf_test():
     jop, jdp, top, tdp = _packed(o, d)
     tm = ck.tile_cull_mask_hierarchical(top, tdp, tpack, "octree")
     np.testing.assert_array_equal(
-        tm.numpy(), np.asarray(pk.tile_cull_mask_hierarchical(jop, jdp, jpack, "octree")))
+        tm.numpy(), np.asarray(pk.tile_cull_mask_hierarchical(jop, jdp, jpack, "aabb")))
+    assert (tm.numpy() <= np.asarray(
+        pk.tile_cull_mask_hierarchical(jop, jdp, jpack, "octree"))).all()
     leaf_only = ck._interval_slab(top, tdp, tpack.tile_aabb, tpack.tile_nonempty)[0]
     assert (tm.bool() <= leaf_only).all()
     assert (leaf_only & ~tm.bool()).any()
@@ -158,13 +163,21 @@ def test_octree_levels_cull_beyond_the_leaf_test():
 
 @pytest.mark.parametrize("partitioning", ["none", "aabb", "octree"])
 def test_tile_masks_and_worklists_match_jax(packs, partitioning):
+    """Each mode's mask equals the JAX package's, but "octree" on more than
+    64 tiles: the port tests each ray down the levels, where the JAX package
+    tests whole ray tiles by intervals, so the port's mask is the JAX
+    package's "aabb" mask and lies inside its "octree" mask."""
     name, dev, jpack, tpack = packs
     o, d = _rays(dev)
     jop, jdp, top, tdp = _packed(o, d)
-    jm = np.asarray(pk.tile_cull_mask_hierarchical(jop, jdp, jpack, partitioning))
+    jm = np.asarray(pk.tile_cull_mask_hierarchical(
+        jop, jdp, jpack, "aabb" if partitioning == "octree" else partitioning))
     tm = ck.tile_cull_mask_hierarchical(top, tdp, tpack, partitioning)
     assert tm.dtype == torch.int32
     np.testing.assert_array_equal(tm.numpy(), jm)
+    if partitioning == "octree":
+        assert (tm.numpy() <= np.asarray(
+            pk.tile_cull_mask_hierarchical(jop, jdp, jpack, "octree"))).all()
     if partitioning != "none":
         assert 0 < jm.sum() < jm.size, "the mask must cull some pair tiles"
     for mask in (jm, jm.T):  # per triangle tile (Pallas) and per ray tile (CUDA)
@@ -318,4 +331,5 @@ def test_cuda_kernels_match_plain(cuda_device):
     assert torch.equal(ck.nearest_dist_matmul(*margs).view(torch.int32),
                        ck.nearest_dist_matmul_plain(*margs).view(torch.int32))
     assert {k: ck.LAUNCHES[k] - before[k] for k in before} == dict(
-        dict.fromkeys(before, 1), nearest_hit=2, fetch_rows=3, tile_cull=0)
+        dict.fromkeys(before, 1), nearest_hit=2, fetch_rows=3, tile_cull=0,
+        tile_cull_levels=0)

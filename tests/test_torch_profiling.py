@@ -326,8 +326,8 @@ def test_levels_span_only_above_64_tiles_and_the_tile_pairs_counted(tiles):
     ex = rec.export()
     dev = ex["device"]
     levels = [s for s in dev if s.name == "levels"]
-    # two a cull: the union boxes' build, and the interval levels below the top
-    assert len(levels) == (6 if tiles > 64 else 0)
+    # one a cull: the union boxes' build and the per-ray cull down them
+    assert len(levels) == (3 if tiles > 64 else 0)
     assert all(dev[s.parent].name == "cull" for s in levels)
     op, dp, _ = ck.pack_rays(origins, dirs)
     mask = ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")

@@ -8,7 +8,14 @@ shape, `portbench/scenes/sphereflake.py`, on the CPU:
 - the camera's centre ray runs from SPD's `from` to `at`, `up` upwards;
 - the port against the benchmark's plain reference on a 2-level flake of
   16,864 triangles in 66 triangle tiles, so that the tile cull's octree
-  levels run: every pixel of an 8 x 8 frame.
+  levels run: every pixel of an 8 x 8 frame;
+- every cull of a frame of that flake (camera, mirror and shadow rays) down
+  the octree levels equal to the flat per-ray cull of the leaf tiles, and
+  inside the interval cull that the levels ran before;
+- on the card (`cuda`): the levels kernel against its twin on a chunk of the
+  configuration's own primary rays and on their shadow rays, and a graph
+  frame of the 2-level flake, one levels launch a cull, against the eager
+  frame of the interval cull.
 """
 
 import copy
@@ -161,3 +168,128 @@ def test_the_port_renders_a_two_level_flake_as_the_reference_does():
     # that differ on exact ties between the port's clustered order and the
     # file order), on whole pixels: here no pixel of 64 (each is 1.6%)
     assert mismatch_pct <= 0.5, (mismatch_pct, np.abs(got - want).max())
+
+
+def _interval_octree(op, dp, pack, partitioning="octree"):
+    """The hierarchical cull with interval levels: the exact per-ray test on
+    the top boxes, below it one interval test of each whole ray tile (its
+    box of origins times its box of directions), ANDed with the parent."""
+    from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
+
+    levels = ck.build_tile_levels(pack.tile_aabb, pack.tile_nonempty)
+    mask = ck.tile_cull_mask_packed(op, dp, *levels[0])
+    for boxes, nonempty in levels[1:] + [(pack.tile_aabb, pack.tile_nonempty)]:
+        child = ck._interval_slab(op, dp, boxes, nonempty)[0].to(torch.int32)
+        mask = child * torch.repeat_interleave(mask, 8, dim=0)[:boxes.shape[0]]
+    return mask
+
+
+def _flake_renderer(size, device, **render):
+    from raytracing_gpu_tpu_torch import RenderConfig, SceneRenderer, parse_scene_text
+
+    arrays = scenes.build(_two_level_flake(), size, size, seed=2**31 + 5)
+    scene = parse_scene_text(scenes.svati_text(arrays))
+    cfg = RenderConfig(**{"mode": "cpu", "quantize": "match", "backend": "cuda",
+                          **render})
+    return SceneRenderer(scene, cfg, device)
+
+
+def test_every_octree_cull_of_a_flake_frame_is_the_flat_per_ray_cull(monkeypatch):
+    """A 10 x 10 frame (400 camera rays: the last ray tile padded), its
+    mirror rays and its shadow rays, parked where a ray is done: each cull
+    down the levels keeps the pair tiles of the flat per-ray test of the 66
+    leaf tiles, and none that the interval levels drop; over the frame the
+    interval levels keep pair tiles that no ray enters."""
+    from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
+
+    r = _flake_renderer(10, "cpu")
+    seen = []
+    hierarchical = ck.tile_cull_mask_hierarchical
+
+    def spy(op, dp, pack, partitioning):
+        got = hierarchical(op, dp, pack, partitioning)
+        flat = ck.tile_cull_mask_packed_plain(op, dp, pack.tile_aabb, pack.tile_nonempty)
+        interval = _interval_octree(op, dp, pack)
+        seen.append((op.shape[1], bool(torch.equal(got, flat)),
+                     bool((got <= interval).all()), int((interval - got).sum())))
+        return got
+
+    monkeypatch.setattr(ck, "tile_cull_mask_hierarchical", spy)
+    r.render_device()
+    assert r.pack.tile_aabb.shape[0] == 66
+    assert len(seen) >= 4  # nearest and shadow rays, two bounces
+    assert {rp for rp, *_ in seen} == {512, 1280}  # camera / mirror; 3 lights
+    assert all(equal and inside for _, equal, inside, _ in seen), seen
+    assert sum(extra for *_, extra in seen) > 0
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; the test skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_levels_kernel_equals_its_twin_on_a_sphereflake_chunk(cuda_device):
+    """The configuration at 512 x 512 (550,828 triangles, 2,152 tiles under
+    levels of 34 and 269 union boxes): a 65,536-ray chunk of CPU-mode
+    primary rays through the image's middle, and its shadow batch (one block
+    of rays per point light, missed primaries parked)."""
+    from raytracing_gpu_tpu_torch import parse_scene_text
+    from raytracing_gpu_tpu_torch.ops import camera as camera_ops
+    from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
+    from raytracing_gpu_tpu_torch.ops.intersect import collide
+    from raytracing_gpu_tpu_torch.ops.shading import shadow_rays
+
+    arrays = scenes.build(CONFIG, 512, 512, seed=2**31 + 7)
+    scene = parse_scene_text(scenes.svati_text(arrays)).to(cuda_device)
+    g = scene.geometry
+    pack = ck.pack_geometry(g.vertices, g.valid, g.normals, g.tri_obj, scene.materials)
+    leaves = (pack.tile_aabb, pack.tile_nonempty)
+    levels = ck.build_tile_levels(*leaves) + [leaves]
+    assert [b.shape[0] for b, _ in levels] == [34, 269, 2152]
+    r = torch.arange(8 * 65536, 9 * 65536, device=cuda_device)
+    coords = camera_ops.cpu_subpixel_coords_traced(512, 512, r)
+    u, v, C = camera_ops.camera_basis(scene.camera)
+    o, d = camera_ops.make_rays(u, v, C, scene.camera.position, coords)
+    hit = collide(o, d, g, backend="cuda", pack=pack)
+    so, sd, _ = shadow_rays(scene.lights, hit)
+    assert so.shape[0] == 3 * o.shape[0]
+    for rays in ((o, d), (so, sd)):
+        op, dp, _ = ck.pack_rays(*rays)
+        before = ck.LAUNCHES["tile_cull_levels"]
+        got = ck.tile_cull_mask_levels(op, dp, levels)
+        want = ck.tile_cull_mask_levels_plain(op, dp, levels)
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["tile_cull_levels"] == before + 1
+        assert torch.equal(got, want)
+        assert torch.equal(got, ck.tile_cull_mask_packed(op, dp, *leaves))
+        assert 0 < int(got.sum()) < got.numel()
+        assert (got <= _interval_octree(op, dp, pack)).all()
+
+
+@pytest.mark.cuda
+def test_graph_frame_of_a_flake_equals_the_interval_cull_frame(cuda_device, monkeypatch):
+    """The 2-level flake at 32 x 32 (66 tiles): the graph frame, culled by
+    the levels kernel, is byte-equal to the eager frame culled by the
+    interval levels, since both keep every pair tile that holds a winner;
+    the frame graph's bounce step records one levels launch a cull (nearest
+    and shadow rays) and no flat one, and a frame launches 2 a bounce step."""
+    from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
+
+    graph = _flake_renderer(32, cuda_device)
+    assert graph.plan is not None and graph.pack.tile_aabb.shape[0] == 66
+    assert graph.plan.graph_launches["step"]["tile_cull_levels"] == 2
+    assert graph.plan.graph_launches["step"]["tile_cull"] == 0
+    before = ck.LAUNCHES["tile_cull_levels"]
+    img = graph.render_device()
+    torch.cuda.synchronize()
+    steps = sum(graph.plan.last_frame.steps)
+    assert steps > 0 and ck.LAUNCHES["tile_cull_levels"] - before == 2 * steps
+    monkeypatch.setattr(ck, "tile_cull_mask_hierarchical", _interval_octree)
+    eager = _flake_renderer(32, cuda_device, unroll="static")
+    assert eager.plan is None
+    want = eager.render_device()
+    assert torch.equal(img, want)

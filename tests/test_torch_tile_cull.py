@@ -1,6 +1,9 @@
 """The tile cull's per-ray slab test, `ops.cuda_intersect.tile_cull_mask_packed`:
 its plain twin on CPU tensors against the JAX package's mask, and on the card
-`tile_cull_kernel` against the twin, bit for bit.
+`tile_cull_kernel` against the twin, bit for bit. The same test down the
+union-box levels beyond 64 tiles, `tile_cull_mask_levels`: its twin equal to
+the flat per-ray mask of the leaves, and on the card
+`tile_cull_levels_kernel` against that twin.
 
 Each edge case sits alone in a ray tile whose other 255 rays are parked, so
 the tile's mask entry is that one ray's verdict. The cases: rays along the
@@ -21,6 +24,8 @@ with the same NaN rule, and to the JAX package on its other pairs.
 The module imports no JAX: the tests marked `cuda` run on the card, and the
 CPU tests import the JAX package where they use it.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -225,26 +230,35 @@ def test_cull_matches_jax(name):
 
 
 def test_grid_has_more_than_64_boxes_and_aabb_takes_the_flat_cull(monkeypatch):
-    """`partitioning="aabb"` culls every leaf tile through the wrapper, also
-    beyond 64 tiles; "octree" sends only its top level (<= 64 union boxes)
-    through it."""
+    """`partitioning="aabb"` culls every leaf tile through the flat wrapper,
+    also beyond 64 tiles; "octree" sends nothing through it, and the levels
+    wrapper gets the union-box levels (at most 64 boxes on top) and the
+    leaves once. Both masks are the flat per-ray mask of the leaves."""
     pack = _pack_of(make_sphere_grid_scene(16, 16, nx=4, ny=4, nz=2,
                                            n_lat=16, n_lon=20))
-    assert pack.tile_aabb.shape[0] > 64
+    nT = pack.tile_aabb.shape[0]
+    assert nT > 64
     o, d = _scene_rays(pack, 4000, seed=7)
     op, dp, _ = ck.pack_rays(torch.from_numpy(o), torch.from_numpy(d))
-    seen = []
+    seen, seen_levels = [], []
 
     def spy(op, dp, boxes, nonempty):
         seen.append(boxes.shape[0])
         return ck.tile_cull_mask_packed_plain(op, dp, boxes, nonempty)
 
+    def spy_levels(op, dp, levels):
+        seen_levels.append([boxes.shape[0] for boxes, _ in levels])
+        return ck.tile_cull_mask_levels_plain(op, dp, levels)
+
     monkeypatch.setattr(ck, "tile_cull_mask_packed", spy)
+    monkeypatch.setattr(ck, "tile_cull_mask_levels", spy_levels)
     flat = ck.tile_cull_mask_hierarchical(op, dp, pack, "aabb")
-    ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")
-    assert seen[0] == pack.tile_aabb.shape[0] and 0 < seen[1] <= 64
-    assert torch.equal(flat, ck.tile_cull_mask_packed_plain(
-        op, dp, pack.tile_aabb, pack.tile_nonempty))
+    octree = ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")
+    assert seen == [nT]
+    assert len(seen_levels) == 1 and seen_levels[0][-1] == nT
+    assert 0 < seen_levels[0][0] <= 64 and len(seen_levels[0]) >= 2
+    want = ck.tile_cull_mask_packed_plain(op, dp, pack.tile_aabb, pack.tile_nonempty)
+    assert torch.equal(flat, want) and torch.equal(octree, want)
 
 
 def test_subnormal_direction_culls_like_torch_maximum():
@@ -267,6 +281,135 @@ def test_subnormal_direction_culls_like_torch_maximum():
     apart[:, 0] = True  # negative subnormals: the stand-in turns them around
     apart[0, 1] = apart[1, 3] = True  # the NaN pairs
     np.testing.assert_array_equal(got[~apart], _jax_mask(*args)[~apart])
+
+
+# ---- the levels: the per-ray test down the union-box hierarchy ----------------
+
+
+@functools.cache
+def _level_pack(name):
+    """"grid75": the 75-tile lattice of the cases above, one level over the
+    leaves; "grid375": the 96,000-triangle sphere grid, 375 tiles (47 + 375);
+    "boxes5000": 5,000 random leaf boxes, three levels over them (the
+    pack's boxes only)."""
+    if name == "boxes5000":
+        boxes, nonempty = _random_boxes(5000, 9)
+        return ck.KernelPack(None, torch.from_numpy(boxes), torch.from_numpy(nonempty),
+                             None, None, None, None)
+    if name == "grid75":
+        scene = make_sphere_grid_scene(16, 16, nx=4, ny=4, nz=2, n_lat=16, n_lon=20)
+    else:
+        scene = make_sphere_grid_scene(16, 16)
+    return _pack_of(scene)
+
+
+def _mixed_rays(pack, seed):
+    """Narrow bundles from outside (`_scene_rays`, 12 ray tiles, the last
+    with a parked tail), then incoherent rays from points inside the tiles'
+    union in every direction, as mirror and shadow rays spread, every fifth
+    one parked, ending in a partial tile that `pack_rays` pads: (R, 3)
+    float32 origins and directions."""
+    o1, d1 = _scene_rays(pack, 12 * ck.TILE_R, seed)
+    rng = np.random.RandomState(seed + 1)
+    lo = pack.tile_aabb[:, 0].amin(0).numpy()
+    hi = pack.tile_aabb[:, 1].amax(0).numpy()
+    n = 4 * ck.TILE_R + 77
+    o2 = (lo + rng.rand(n, 3) * (hi - lo)).astype(np.float32)
+    d2 = rng.randn(n, 3).astype(np.float32)
+    o2[::5], d2[::5] = PARKED, 0.0
+    return np.concatenate([o1, o2]), np.concatenate([d1, d2])
+
+
+def _levels_case(name, device="cpu"):
+    """(op, dp, levels, pack) of a levels case on `device`."""
+    pack = _level_pack(name)
+    o, d = _mixed_rays(pack, seed=11)
+    op, dp, _ = ck.pack_rays(torch.from_numpy(o).to(device),
+                             torch.from_numpy(d).to(device))
+    leaves = (pack.tile_aabb.to(device), pack.tile_nonempty.to(device))
+    return op, dp, ck.build_tile_levels(*leaves) + [leaves], pack
+
+
+LEVEL_CASES = ("grid75", "grid375", "boxes5000")
+LEVEL_SIZES = {"grid75": [10, 75], "grid375": [47, 375], "boxes5000": [10, 79, 625, 5000]}
+
+
+@pytest.mark.parametrize("name", LEVEL_CASES)
+def test_levels_twin_is_the_flat_per_ray_cull_of_the_leaves(name):
+    """Down the levels each ray enters only the children of the boxes it
+    entered itself; a parent's box holds its children's, so the mask is the
+    flat per-ray mask of the leaves, also on tiles that mix live, parked and
+    padding rays. On the incoherent tiles the interval test of a whole ray
+    tile keeps leaf tiles that no ray of the tile enters."""
+    op, dp, levels, pack = _levels_case(name)
+    assert [b.shape[0] for b, _ in levels] == LEVEL_SIZES[name]
+    got = ck.tile_cull_mask_levels_plain(op, dp, levels)
+    assert got.dtype == torch.int32 and got.shape == (levels[-1][0].shape[0],
+                                                      op.shape[1] // ck.TILE_R)
+    assert torch.equal(got, ck.tile_cull_mask_packed_plain(
+        op, dp, pack.tile_aabb, pack.tile_nonempty))
+    assert torch.equal(got, ck.tile_cull_mask_hierarchical(op, dp, pack, "octree"))
+    assert 0 < int(got.sum()) < got.numel()
+    interval = ck._interval_slab(op, dp, pack.tile_aabb, pack.tile_nonempty)[0]
+    assert (got.bool() <= interval).all()
+    assert (interval[:, 12:] & ~got.bool()[:, 12:]).any()
+
+
+@pytest.mark.parametrize("name", LEVEL_CASES)
+def test_levels_wrapper_takes_the_plain_twin_on_cpu(name):
+    """On CPU tensors the levels wrapper is its twin and counts no launch."""
+    op, dp, levels, _ = _levels_case(name)
+    before = dict(ck.LAUNCHES)
+    got = ck.tile_cull_mask_levels(op, dp, levels)
+    assert ck.LAUNCHES == before
+    assert torch.equal(got, ck.tile_cull_mask_levels_plain(op, dp, levels))
+
+
+def _subnormal_levels():
+    """Two top boxes over 16 leaves, and one ray tile per ray of
+    SUBNORMAL_LEVEL_RAYS: (op, dp, levels). Leaf 0 is [-1, 1]^3; leaf 1 has
+    its lower x face at -2, so its parent, top box 0, does too."""
+    rng = np.random.RandomState(4)
+    lo = rng.uniform(3, 6, (16, 3)).astype(np.float32)
+    hi = (lo + 1).astype(np.float32)
+    lo[0], hi[0] = -1, 1
+    lo[1], hi[1] = (-2, -0.5, -0.5), (-1.5, 0.5, 0.5)
+    leaves = np.stack([lo, hi], 1)
+    top = np.stack([leaves[:, 0].reshape(2, 8, 3).min(1),
+                    leaves[:, 1].reshape(2, 8, 3).max(1)], 1)
+    o, d = _tiles(SUBNORMAL_LEVEL_RAYS)
+    op, dp, _ = ck.pack_rays(torch.from_numpy(o), torch.from_numpy(d))
+    full = torch.ones
+    return op, dp, [(torch.from_numpy(top), full(2, dtype=torch.bool)),
+                    (torch.from_numpy(leaves), full(16, dtype=torch.bool))]
+
+
+# all three direction components subnormal and positive: inv = inf on each
+SUBNORMAL_LEVEL_RAYS = [
+    ((-2, 0, 0), (SUBNORMAL,) * 3),  # on top box 0's x = lo face, outside leaf 0
+    ((-3, 0, 0), (SUBNORMAL,) * 3),  # off every face: no NaN anywhere
+]
+
+
+def test_levels_follow_each_rays_own_chain_on_a_subnormal_direction():
+    """Where a subnormal direction makes a NaN in one box of the chain and
+    not in another, the per-ray chain and the flat test of the leaves part:
+    the first ray passes leaf 0 (inv = inf puts every entry at +inf) and
+    meets 0 * inf on top box 0's face, so the chain culls what the flat
+    test keeps under that box; the second ray, with no NaN, and the leaves
+    under top box 1 are alike. The twin follows
+    the chain: the numpy mask of each level, ANDed with its parent's."""
+    op, dp, levels = _subnormal_levels()
+    got = ck.tile_cull_mask_levels_plain(op, dp, levels)
+    (top, top_ne), (leaves, leaf_ne) = levels
+    flat = ck.tile_cull_mask_packed_plain(op, dp, leaves, leaf_ne)
+    chain = (_numpy_mask(op, dp, leaves, leaf_ne)
+             & np.repeat(_numpy_mask(op, dp, top, top_ne), 8, 0))
+    n = len(SUBNORMAL_LEVEL_RAYS)
+    np.testing.assert_array_equal(got.numpy()[:, :n], chain[:, :n])
+    assert flat[0, 0] == 1 and not got[:8, 0].any()  # top box 0's NaN
+    assert torch.equal(got[:, 1], flat[:, 1])  # no NaN: alike
+    assert torch.equal(got[8:], flat[8:])  # under top box 1 alike
 
 
 def test_wrapper_refuses_other_devices():
@@ -306,6 +449,56 @@ def _require_kernel_equals_twin(args):
 def test_kernel_equals_the_plain_twin(cuda_device, name):
     got = _require_kernel_equals_twin(_packed(name, cuda_device))
     assert 0 < int(got.sum()) < got.numel()
+
+
+def _require_levels_kernel_equals_twin(op, dp, levels):
+    before = ck.LAUNCHES["tile_cull_levels"]
+    got = ck.tile_cull_mask_levels(op, dp, levels)
+    again = ck.tile_cull_mask_levels(op, dp, levels)
+    want = ck.tile_cull_mask_levels_plain(op, dp, levels)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["tile_cull_levels"] == before + 2
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(again, got)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", LEVEL_CASES)
+def test_levels_kernel_equals_the_plain_twin(cuda_device, name):
+    op, dp, levels, _ = _levels_case(name, cuda_device)
+    got = _require_levels_kernel_equals_twin(op, dp, levels)
+    assert 0 < int(got.sum()) < got.numel()
+    # the flat kernel over the leaves keeps the same pair tiles
+    assert torch.equal(got, ck.tile_cull_mask_packed(op, dp, *levels[-1]))
+
+
+@pytest.mark.cuda
+def test_levels_kernel_follows_the_chain_on_a_subnormal_direction(cuda_device):
+    """The kernel takes the twin's per-ray chain where a NaN parts it from
+    the flat test."""
+    op, dp, levels = (x.to(cuda_device) if torch.is_tensor(x)
+                      else [tuple(t.to(cuda_device) for t in lv) for lv in x]
+                      for x in _subnormal_levels())
+    got = _require_levels_kernel_equals_twin(op, dp, levels)
+    assert got[0, 1] == 1 and not got[:8, 0].any()
+    flat = ck.tile_cull_mask_packed(op, dp, *levels[1])
+    assert flat[0, 0] == 1 and torch.equal(got[8:], flat[8:])
+
+
+@pytest.mark.cuda
+def test_levels_wrapper_refuses_levels_the_kernel_cannot_walk(cuda_device):
+    op, dp, levels, _ = _levels_case("grid75", cuda_device)
+    with pytest.raises(ValueError, match="group the next by 8"):
+        ck.tile_cull_mask_levels(op, dp, [levels[0], levels[0], levels[1]])
+    with pytest.raises(ValueError, match="at most 64"):
+        ck.tile_cull_mask_levels(op, dp, levels[1:])
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        shifted = torch.ones(76, dtype=torch.bool, device=cuda_device)[1:]
+        ck.tile_cull_mask_levels(op, dp, [levels[0], (levels[1][0], shifted)])
+    with pytest.raises(ValueError, match="multiple of"):
+        ck.tile_cull_mask_levels(op[:, :100].contiguous(), dp[:, :100].contiguous(),
+                                 levels)
 
 
 @pytest.mark.cuda
