@@ -200,7 +200,7 @@ from raytracing_gpu_tpu_torch.parallel.checkpoint import (
 from raytracing_gpu_tpu_torch.parallel.render import frame_inputs, split_scene
 from raytracing_gpu_tpu_torch.parallel.train import PARAM_KEYS
 from raytracing_gpu_tpu_torch.render import _pick_block, _swiz_ray_ids, frame_depth
-from raytracing_gpu_tpu_torch.utils import frame_graph, image_graph, profiling
+from raytracing_gpu_tpu_torch.utils import capture, frame_graph, image_graph, profiling
 from raytracing_gpu_tpu_torch.utils.compare import assert_images_close
 from raytracing_gpu_tpu_torch.utils.image import ppm_bytes, write_png, write_ppm
 from raytracing_gpu_tpu_torch.utils.inspect import main as inspect_main
@@ -1062,15 +1062,12 @@ def expected_steps(alive, first_step: bool, n_bounces: int) -> list:
 
 
 def capture_pieces(fns: dict, dev) -> dict:
-    """Each of `fns` called once, then captured into a CUDA graph whose
+    """Each of `fns` warmed up, then captured into a CUDA graph whose
     `cudaGraph_t` is kept (as a `FramePlan` captures its pieces)."""
-    side = torch.cuda.Stream(dev)
-    graphs = {}
-    for name, fn in fns.items():
-        fn()
-        graphs[name] = torch.cuda.CUDAGraph(keep_graph=True)
-        frame_graph.capture_graph(graphs[name], fn, side)
-    return graphs
+    passes = [(f"{name!r} piece", fn) for name, fn in fns.items()]
+    side, _, _ = capture.warm_up(dev, passes, "loop probe")
+    graphs, _ = capture.capture(side, passes, "loop probe", keep_graph=True)
+    return dict(zip(fns, graphs))
 
 
 def assemble(state, graphs, n_chunks, n_bounces, first_step):
@@ -1191,9 +1188,9 @@ def check_frame_loop(dev) -> dict:
         "launches (counted on the device), runs of rays and fold and final chunk "
         "index equal to the twins' and to the eager loop's, twice")
     x = torch.ones((1,), device=dev)
-    with frame_graph.counted_syncs() as in_add:
+    with capture.counted_syncs() as in_add:
         x.add_(1.0)
-    with frame_graph.counted_syncs() as in_item:
+    with capture.counted_syncs() as in_item:
         x.sum().item()
     if in_add.n != 0 or in_item.n < 1:
         raise AssertionError(f"the sync counter counted {in_add.n} syncs in an add and "
@@ -1896,7 +1893,7 @@ def image_call(scene_d, params, cfg, plan, views=(None,)):
     ck.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with frame_graph.counted_syncs() as synced:
+    with capture.counted_syncs() as synced:
         imgs = [render_image(insert_params(scene_d, view(params) if view else params),
                              cfg, device=scene_d.device, plan=plan) for view in views]
         sum(img.mean() for img in imgs).backward()
@@ -2250,7 +2247,7 @@ def check_image_frame_program(renderer, ref_img, smi):
             times[which].append(wall_ms(renderer.render_device)[1])
         else:
             # the frame counts its host syncs while the recorder is on
-            with profiling.recording(), frame_graph.counted_syncs() as synced:
+            with profiling.recording(), capture.counted_syncs() as synced:
                 again, ms = call(scene_d)
             times[which].append(ms)
             counts = dict(ck.LAUNCHES)

@@ -49,7 +49,8 @@ launches as they counted them on the device, and `ops.cuda_intersect.
 LAUNCHES` the launches each piece recorded at its capture times the number
 of times the frame ran it, which the kernel after it in the program counted
 (`loop_reset` for "rays", `bounce_condition` for "step", `chunk_advance`
-for "fold"). The warm-up before each capture launches for real and counts
+for "fold"). The pieces are warmed up and captured as every plan's passes
+are (`utils/capture.py`): the warm-up launches for real and counts
 (`warmup_launches`).
 
 A capture, an assembly or a launch that fails raises, naming the step;
@@ -67,8 +68,6 @@ import contextlib
 import ctypes
 import functools
 import time
-import types
-import warnings
 from typing import Callable, NamedTuple
 
 import torch
@@ -78,7 +77,7 @@ from raytracing_gpu_tpu_torch.ops import camera as camera_ops
 from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
 from raytracing_gpu_tpu_torch.ops.colors import ColorOps
 from raytracing_gpu_tpu_torch.ops.fp import f32
-from raytracing_gpu_tpu_torch.utils import profiling
+from raytracing_gpu_tpu_torch.utils import capture, profiling
 from raytracing_gpu_tpu_torch.utils.profiling import annotate
 
 PIECES = ("rays", "step", "fold")
@@ -368,75 +367,6 @@ class FrameGraph:
             self._exec = None
 
 
-@contextlib.contextmanager
-def counted_syncs():
-    """Counts the host syncs torch makes inside the block, on a card (sync
-    debug mode "warn", whose warnings are caught here): yields an object
-    whose `n` holds the count once the block has ended. Other warnings are
-    passed on."""
-    count = types.SimpleNamespace(n=0)
-    before = torch.cuda.get_sync_debug_mode()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            yield count
-        finally:
-            torch.cuda.set_sync_debug_mode(before)
-    for w in caught:
-        if "called a synchronizing CUDA operation" in str(w.message):
-            count.n += 1
-        else:
-            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
-
-
-@contextlib.contextmanager
-def _sync_debug_error():
-    """Any host sync inside the block raises (torch's sync debug mode)."""
-    before = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(before)
-
-
-def _current(dev):
-    """`dev` made the current CUDA device for the block (a graph is captured
-    and replayed on the current device's streams); nothing on the CPU."""
-    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
-
-
-def reserved_bytes(dev) -> int:
-    """Bytes the caching allocator has reserved on a CUDA device (cached
-    free blocks included; nothing is released to measure it); 0 on the
-    CPU. A plan's `held_bytes` is the growth over its construction: the
-    segments of its graphs' private pool, its buffers, and whatever its
-    warm-up could not fit into blocks cached before."""
-    return torch.cuda.memory_reserved(dev) if dev.type == "cuda" else 0
-
-
-def capture_graph(graph, fn, stream, pool=None) -> None:
-    """Capture `fn()` into the CUDA graph `graph` on `stream`, in the memory
-    pool `pool` (None: a private one), as `torch.cuda.graph` does but
-    without its `torch.cuda.empty_cache()`: a capture leaves the blocks the
-    allocator has cached for the rest of the process where they are."""
-    torch.cuda.synchronize(stream.device)  # nothing of before is in flight
-    # a graph captured while recording writes the recorder's buffers: it holds them
-    graph.recorder = profiling.active()
-    with torch.cuda.stream(stream):
-        graph.capture_begin(*(() if pool is None else (pool,)))
-        try:
-            fn()
-        except BaseException:
-            try:
-                graph.capture_end()
-            except RuntimeError:
-                pass  # the capture is already invalid: fn's error says why
-            raise
-        graph.capture_end()
-
-
 class FramePlan:
     """One scene's frame as three captured pieces assembled into one CUDA
     graph with its loops on the device (see the module docstring). `frame`
@@ -471,7 +401,7 @@ class FramePlan:
         self.device = dev
         self.last_frame = None
         t0 = time.perf_counter()
-        reserved = reserved_bytes(dev)
+        reserved = capture.reserved_bytes(dev)
         with torch.no_grad():
             if basis is None:
                 # the camera basis once, on the host (camera_basis reads it back)
@@ -496,10 +426,10 @@ class FramePlan:
             self.warmup_launches = {k: 0 for k in ck.LAUNCHES}
             self.graph_launches = {p: dict(self.warmup_launches) for p in PIECES}
             if dev.type == "cuda":
-                with _current(dev):
+                with capture.current(dev):
                     self._capture()
         self.graphs = int(self.graph is not None)
-        self.held_bytes = reserved_bytes(dev) - reserved
+        self.held_bytes = capture.reserved_bytes(dev) - reserved
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
     # ---- the pieces: device work only, no host read ----------------------
@@ -552,57 +482,33 @@ class FramePlan:
     # ---- capture, assembly and launch -------------------------------------
 
     def _capture(self):
-        """Warm each piece up on a side stream of the plan's device, in
-        frame order and with any host sync raising, then capture it into a
-        CUDA graph on the same stream, keeping its `cudaGraph_t`; all three
-        share one memory pool (they run one after another on one stream).
-        Then assemble them into the frame graph."""
-        dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        before = dict(ck.LAUNCHES)
-        with torch.cuda.stream(side):
-            for name in PIECES:
-                try:
-                    with _sync_debug_error():
-                        self._pieces[name]()
-                except RuntimeError as e:
-                    raise RuntimeError(f"SceneRenderer: warming up the frame's "
-                                       f"{name!r} piece failed: {e}") from e
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.warmup_launches = {k: ck.LAUNCHES[k] - before[k] for k in before}
-        pool = torch.cuda.graph_pool_handle()
-        graphs = {}
-        for name in PIECES:
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with ck.captured_launches() as counts:
-                try:
-                    # on the side stream: torch's default capture stream
-                    # belongs to the device current at its first use
-                    capture_graph(graph, self._pieces[name], side, pool)
-                except RuntimeError as e:
-                    raise RuntimeError(f"SceneRenderer: capturing the frame's "
-                                       f"{name!r} piece into a CUDA graph failed: "
-                                       f"{e}") from e
-            graphs[name] = graph
-            self.graph_launches[name] = counts
+        """Warm the pieces up and capture them, in frame order, into one
+        memory pool (they run one after another on one stream), keeping
+        each graph's `cudaGraph_t` (`utils/capture.py`); then assemble them
+        into the frame graph."""
+        passes = [(f"frame's {name!r} piece", self._pieces[name]) for name in PIECES]
+        side, _, self.warmup_launches = capture.warm_up(self.device, passes,
+                                                        "SceneRenderer")
+        graphs, launches = capture.capture(side, passes, "SceneRenderer",
+                                           torch.cuda.graph_pool_handle(), keep_graph=True)
         self._graphs = graphs  # they hold the pieces' memory pool
+        self.graph_launches = dict(zip(PIECES, launches))
         t0 = time.perf_counter()
-        raw = {name: g.raw_cuda_graph() for name, g in graphs.items()}
+        raw = {name: g.raw_cuda_graph() for name, g in zip(PIECES, graphs)}
         try:
             self.graph = FrameGraph(self._loop, raw, self.n_chunks, self.n_bounces,
                                     self.first_step)
         except RuntimeError as e:
             raise RuntimeError(f"SceneRenderer: {e}") from e
         self.piece_nodes = self.graph.piece_nodes
-        torch.cuda.synchronize(dev)
+        torch.cuda.synchronize(self.device)
         self.assembly_ms = (time.perf_counter() - t0) * 1e3
 
     @torch.no_grad()
     def render(self) -> torch.Tensor:
         """One frame: (H,W,3) float32 in [0,255] on the device, a tensor of
         its own (the frame buffer is reused by the next frame)."""
-        with _current(self.device):
+        with capture.current(self.device):
             if self.graph is None:
                 with annotate("frame.launch", device=False):
                     interpret(PROGRAM, self._loop, self._pieces, self.n_chunks,
@@ -615,7 +521,7 @@ class FramePlan:
                 # syncs are counted only while recording: the count's sync
                 # debug mode and caught warnings stay off the hot path
                 recording = profiling.active() is not None
-                with counted_syncs() if recording else contextlib.nullcontext() as synced:
+                with capture.counted_syncs() if recording else contextlib.nullcontext() as synced:
                     with annotate("frame.launch", device=False):
                         self.graph.launch(torch.cuda.current_stream(self.device))
                     with annotate("frame.finish", device=False):

@@ -59,10 +59,10 @@ replays an image's backward graph twice; `create_graph=True` raises (the
 captured backward pass is once-differentiable).
 
 On the CPU nothing is captured: every call runs the same code over the
-same slots' buffers, uncaptured, so the CPU tests run it. A warm-up or a
-capture that fails raises, naming the step: nothing falls back to the
-eager path on a failure. Launch counts stay true: the warm-up launches for real, and
-each replay adds the launches its capture recorded.
+same slots' buffers, uncaptured, so the CPU tests run it. The warm-up, the
+captures and the launch counts of a replay are every plan's
+(`utils/capture.py`): a failure raises, naming the pass, and nothing falls
+back to the eager path.
 """
 
 from __future__ import annotations
@@ -75,13 +75,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
-from raytracing_gpu_tpu_torch.utils.frame_graph import (
-    _current,
-    _sync_debug_error,
-    capture_graph,
-    reserved_bytes,
-)
-from raytracing_gpu_tpu_torch.utils.step_graph import cloned, structure, tensor_leaves
+from raytracing_gpu_tpu_torch.utils import capture
 
 MAX_PLANS = 4
 MAX_SLOTS = 8
@@ -103,7 +97,7 @@ class ImageProgram(NamedTuple):
 def needs_grad(scene) -> bool:
     """Grad mode is on and some tensor of the scene requires grad."""
     return torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in tensor_leaves(scene))
+                                           for t in capture.tensor_leaves(scene))
 
 
 def image_graph_blocker(cfg, grad: bool) -> str | None:
@@ -146,7 +140,7 @@ class ImageSlot:
 
     def __init__(self, scene, grad: bool):
         self._t0 = time.perf_counter()
-        self._reserved = reserved_bytes(scene.device)
+        self._reserved = capture.reserved_bytes(scene.device)
         self.busy = False
         self.uses = 0
         self.capture_ms = self.warmup_ms = 0.0
@@ -157,9 +151,9 @@ class ImageSlot:
         self.graphs = None
         self.image = self.grads = None
         with torch.no_grad():
-            self.scene = cloned(scene)
-            self.buffers = tensor_leaves(self.scene)
-            for buf, t in zip(self.buffers, tensor_leaves(scene)):
+            self.scene = capture.cloned(scene)
+            self.buffers = capture.tensor_leaves(self.scene)
+            for buf, t in zip(self.buffers, capture.tensor_leaves(scene)):
                 buf.requires_grad_(grad and t.requires_grad)
             self.grad_bufs = [b for b in self.buffers if b.requires_grad]
             cam = scene.camera
@@ -218,7 +212,7 @@ class ImagePlan:
         recorded by autograd when the plan's grad is needed, through the
         lowest free slot; None beyond `MAX_SLOTS` outstanding images (the
         call counted in `eager_calls`: the caller renders it eagerly)."""
-        leaves = tensor_leaves(scene)
+        leaves = capture.tensor_leaves(scene)
         if not self.grad:
             return self.forward(self.slots[0], leaves)
         slot = self._free_slot(scene)
@@ -254,7 +248,7 @@ class ImagePlan:
         """Copy the scene's tensors into the slot's buffers, run the forward
         pass over them (the slot's first call on a card: warm-up, capture,
         replay) and return the image, a tensor of its own."""
-        with torch.no_grad(), _current(self.device):
+        with torch.no_grad(), capture.current(self.device):
             for buf, t in zip(slot.buffers, leaves):
                 buf.copy_(t)
             slot.uses += 1
@@ -268,8 +262,7 @@ class ImagePlan:
                 else:
                     self.last_call = "replay"
                     self.replays += 1
-                slot.graphs[0].replay()
-                ck.add_launches(slot.forward_launches)
+                capture.replay(slot.graphs[0], slot.forward_launches)
             self.generation += 1
             if self.frame_program:
                 return self._frame.render()
@@ -279,13 +272,12 @@ class ImagePlan:
         """The gradients of the slot's buffers that require grad (None where
         the image does not reach one), copies of their own, for the image
         of the slot's last forward pass."""
-        with torch.no_grad(), _current(self.device):
+        with torch.no_grad(), capture.current(self.device):
             slot.grad_image.copy_(grad_image)
             if slot.graphs is None:
                 self._run_backward(slot)
             else:
-                slot.graphs[1].replay()
-                ck.add_launches(slot.backward_launches)
+                capture.replay(slot.graphs[1], slot.backward_launches)
                 self.backward_replays += 1
             return [None if g is None else g.clone() for g in slot.grads]
 
@@ -311,55 +303,26 @@ class ImagePlan:
     # ---- warm-up and capture on the card -----------------------------------
 
     def _warm_up_and_capture(self, slot: ImageSlot):
-        """The passes eager on a side stream of the plan's device with any
-        host sync raising, then each captured into a CUDA graph on the same
-        stream (which runs nothing), all into the slot's own memory pool:
-        forward first, so that the backward capture allocates nothing over
-        what the forward pass saved."""
-        dev = self.device
+        """The passes warmed up, then captured (`utils/capture.py`) into the
+        slot's own memory pool: forward first, so that the backward capture
+        allocates nothing over what the forward pass saved."""
         passes = [("forward pass" if not self.frame_program
                    else "pack and camera basis (the frame program's inputs)",
                    lambda: self._run_forward(slot))]
         if self.grad:
             passes.append(("backward pass", lambda: self._run_backward(slot)))
-        what = " and ".join(name for name, _ in passes)
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        before = dict(ck.LAUNCHES)
-        with torch.cuda.stream(side):
-            try:
-                with _sync_debug_error():
-                    for _, run in passes:
-                        run()
-            except RuntimeError as e:
-                raise RuntimeError(f"render_image: the warm-up {what} before the "
-                                   f"capture failed: {e}") from e
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        slot.warmup_ms = (time.perf_counter() - t0) * 1e3
-        slot.warmup_launches = {k: ck.LAUNCHES[k] - before[k] for k in before}
+        side, slot.warmup_ms, slot.warmup_launches = capture.warm_up(self.device, passes,
+                                                                     "render_image")
         slot.image = slot.grads = None  # the warm-up's graph and gradients
         # a pool per slot: a slot's saved tensors and `SweepTape`s stay where
         # its own graphs put them, whatever the other slots replay
-        pool = torch.cuda.graph_pool_handle()
-        graphs, counts = [], []
-        for name, run in passes:
-            graph = torch.cuda.CUDAGraph()
-            with ck.captured_launches() as recorded:
-                try:
-                    capture_graph(graph, run, side, pool)
-                except RuntimeError as e:
-                    raise RuntimeError(f"render_image: capturing the {name} into a "
-                                       f"CUDA graph failed: {e}") from e
-            graphs.append(graph)
-            counts.append(recorded)
-        slot.graphs = graphs
-        slot.forward_launches = counts[0]
+        slot.graphs, launches = capture.capture(side, passes, "render_image",
+                                                torch.cuda.graph_pool_handle())
+        slot.forward_launches = launches[0]
         if self.grad:
-            slot.backward_launches = counts[1]
-        torch.cuda.synchronize(dev)
-        slot.held_bytes = reserved_bytes(dev) - slot._reserved
+            slot.backward_launches = launches[1]
+        torch.cuda.synchronize(self.device)
+        slot.held_bytes = capture.reserved_bytes(self.device) - slot._reserved
         slot.capture_ms = (time.perf_counter() - slot._t0) * 1e3
         self.captures += 1
 
@@ -420,8 +383,8 @@ _PLANS: collections.OrderedDict = collections.OrderedDict()
 def image_plan(scene, cfg, depth: int, grad: bool, program: ImageProgram) -> ImagePlan:
     """The plan for this call (made on a miss), now the most recently
     used; beyond `MAX_PLANS` the least recently used one is dropped."""
-    key = (cfg, depth, scene.device, structure(scene), grad,
-           tuple(t.requires_grad for t in tensor_leaves(scene)) if grad else None)
+    key = (cfg, depth, scene.device, capture.structure(scene), grad,
+           tuple(t.requires_grad for t in capture.tensor_leaves(scene)) if grad else None)
     plan = _PLANS.pop(key, None) or ImagePlan(scene, cfg, depth, grad, program)
     _PLANS[key] = plan
     while len(_PLANS) > MAX_PLANS:

@@ -37,25 +37,18 @@ the same buffers, so the CPU tests run it.
 A capture that fails raises; nothing falls back to the eager step. An
 optimizer that has a `capturable` option must have it on
 (`require_capturable`): a non-capturable `torch.optim.Adam` reads its step
-count on the host. Launch counts (`ops.cuda_intersect.LAUNCHES`) stay true:
-the warm-up launches for real, and each replay adds the launches the
-capture recorded.
+count on the host. The warm-up, the capture and the launch counts of a
+replay are every plan's (`utils/capture.py`).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import time
 
 import torch
 
 from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
-from raytracing_gpu_tpu_torch.utils.frame_graph import (
-    _current,
-    _sync_debug_error,
-    capture_graph,
-    reserved_bytes,
-)
+from raytracing_gpu_tpu_torch.utils import capture
 from raytracing_gpu_tpu_torch.utils.profiling import annotate
 
 
@@ -93,47 +86,12 @@ def require_capturable(optimizer) -> None:
                 f"an eager step")
 
 
-def tensor_leaves(obj) -> list:
-    """The tensors of a (nested) dataclass, in field order."""
-    out = []
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        if isinstance(v, torch.Tensor):
-            out.append(v)
-        elif dataclasses.is_dataclass(v):
-            out += tensor_leaves(v)
-    return out
-
-
-def structure(obj) -> tuple:
-    """Everything of a (nested) dataclass but its tensors' values: field
-    names, plain values, and each tensor's shape, dtype and device."""
-    out = []
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        if isinstance(v, torch.Tensor):
-            out.append((f.name, tuple(v.shape), v.dtype, v.device))
-        elif dataclasses.is_dataclass(v):
-            out.append((f.name, structure(v)))
-        else:
-            out.append((f.name, v))
-    return tuple(out)
-
-
-def cloned(obj):
-    """A copy of a (nested) dataclass with its own copy of every tensor."""
-    return dataclasses.replace(obj, **{
-        f.name: (v.clone() if isinstance(v, torch.Tensor)
-                 else cloned(v) if dataclasses.is_dataclass(v) else v)
-        for f in dataclasses.fields(obj) for v in (getattr(obj, f.name),)})
-
-
 def _state_key(state, scene, coords, target):
     """(plain values, objects) that a captured step depends on: the state's
     and optimizer's tensors (held, compared by identity) with their storage
     addresses, the optimizer's settings, and the inputs' structure."""
     opt = state.opt_state
-    values, objects = [structure(scene)], [state, opt]
+    values, objects = [capture.structure(scene)], [state, opt]
     for t in (coords, target):
         values.append((tuple(t.shape), t.dtype, t.device))
     for k, p in state.params.items():
@@ -192,7 +150,7 @@ class StepPlan:
         lie on the plan's device; returns the loss of the parameters before
         the update, a tensor of its own."""
         fresh = not _same_key(_state_key(state, scene, coords, target), self._key)
-        with _current(self.device):
+        with capture.current(self.device):
             if fresh:
                 self._bind(state, scene, coords, target)
             else:
@@ -207,8 +165,7 @@ class StepPlan:
             else:
                 self.last_call = "replay"
                 with annotate("step.launch", device=False):
-                    self._graph.replay()
-                ck.add_launches(self.graph_launches)
+                    capture.replay(self._graph, self.graph_launches)
                 self.replays += 1
             loss = self._loss.clone()
         if fresh:  # the first step created the optimizer's state
@@ -221,14 +178,14 @@ class StepPlan:
         """Static buffers of the plan's own for a new state or structure."""
         self._graph = self._key = None
         self._state = state
-        self._scene = cloned(scene)
+        self._scene = capture.cloned(scene)
         self._coords, self._target = coords.clone(), target.clone()
         self._loss = torch.zeros((), device=self.device)
 
     def _load(self, scene, coords, target):
         """Copy this call's inputs into the static buffers."""
-        for buf, new in zip(tensor_leaves(self._scene) + [self._coords, self._target],
-                            tensor_leaves(scene) + [coords, target]):
+        for buf, new in zip(capture.tensor_leaves(self._scene) + [self._coords, self._target],
+                            capture.tensor_leaves(scene) + [coords, target]):
             buf.copy_(new)
 
     def _forward_backward(self):
@@ -246,44 +203,25 @@ class StepPlan:
                 self._state.opt_state.step()
 
     def _warm_up_and_capture(self):
-        """This call's step, eager on a side stream with any host sync
-        raising, then the step captured into a CUDA graph on the same
-        stream (which runs nothing). The state keeps the warm-up step's
-        gradients."""
+        """This call's step warmed up, then captured (`utils/capture.py`).
+        The state keeps the warm-up step's gradients."""
         dev, opt = self.device, self._state.opt_state
         require_capturable(opt)
         t0 = time.perf_counter()
-        reserved = reserved_bytes(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        before = dict(ck.LAUNCHES)
+        reserved = capture.reserved_bytes(dev)
+        passes = [("step", self._step)]
         opt.zero_grad(set_to_none=True)
-        with torch.cuda.stream(side):
-            try:
-                with _sync_debug_error():
-                    self._step()
-            except RuntimeError as e:
-                raise RuntimeError(f"training step: the warm-up step before the "
-                                   f"capture failed: {e}") from e
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        self.warmup_ms = (time.perf_counter() - t0) * 1e3
-        self.warmup_launches = {k: ck.LAUNCHES[k] - before[k] for k in before}
+        side, self.warmup_ms, self.warmup_launches = capture.warm_up(dev, passes,
+                                                                     "training step")
         grads = [(p, p.grad) for p in self._state.params.values() if p.grad is not None]
         # backward() in the capture makes the gradients in the graph's pool
         opt.zero_grad(set_to_none=True)
-        graph = torch.cuda.CUDAGraph()
-        with ck.captured_launches() as counts:
-            try:
-                capture_graph(graph, self._step, side)
-            except RuntimeError as e:
-                raise RuntimeError(f"training step: capturing the step into a CUDA "
-                                   f"graph failed: {e}") from e
+        (self._graph,), (self.graph_launches,) = capture.capture(side, passes,
+                                                                 "training step")
         with torch.no_grad():
             for p, g in grads:
                 p.grad.copy_(g)
-        self._graph, self.graph_launches = graph, counts
         torch.cuda.synchronize(dev)
-        self.held_bytes = reserved_bytes(dev) - reserved
+        self.held_bytes = capture.reserved_bytes(dev) - reserved
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.captures += 1

@@ -43,6 +43,7 @@ from raytracing_gpu_tpu.render import render_image as jrender_image
 from raytracing_gpu_tpu_torch import RenderConfig, SceneRenderer, render_image
 from raytracing_gpu_tpu_torch.models.procedural import make_sphere_scene
 from raytracing_gpu_tpu_torch.models.scene import scene_from_numpy
+from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
 from raytracing_gpu_tpu_torch.parallel.train import (
     PARAM_KEYS,
     extract_params,
@@ -447,8 +448,8 @@ def test_defaults_and_plan_false(scene):
 @pytest.mark.cuda
 def test_render_image_replays_on_the_card(scene):
     """On the card the first call captures, the next replays two graphs per
-    forward and backward pass, and the image and gradients follow the
-    eager call's."""
+    forward and backward pass, adding exactly the launches their captures
+    recorded, and the image and gradients follow the eager call's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA graphs and kernels have no CPU mode)")
     cfg = _cfg()
@@ -456,12 +457,17 @@ def test_render_image_replays_on_the_card(scene):
     for plan in (None, False, None):
         p = {k: v.detach().clone().cuda().requires_grad_()
              for k, v in extract_params(scene).items()}
+        before = dict(ck.LAUNCHES)
         img = render_image(insert_params(scene.to("cuda"), p), cfg, plan=plan)
         img.mean().backward()
+        added = {k: ck.LAUNCHES[k] - before[k] for k in before}
         runs.setdefault(plan, []).append((img.detach().cpu(),
                                           {k: v.grad.cpu() for k, v in p.items()}))
     (plan,) = image_graph.image_plans()
     assert (plan.captures, plan.replays, plan.last_call) == (1, 1, "replay")
+    (slot,) = plan.slots
+    replayed = {k: slot.forward_launches[k] + slot.backward_launches[k] for k in added}
+    assert added == replayed and replayed["nearest_hit"] > 0
     (eager_img, eager), = runs[False]
     for img, grads in runs[None]:
         assert torch.equal(img, eager_img)

@@ -36,6 +36,7 @@ from raytracing_gpu_tpu_torch import RenderConfig
 from raytracing_gpu_tpu_torch.models.procedural import make_sphere_scene
 from raytracing_gpu_tpu_torch.models.scene import scene_from_numpy
 from raytracing_gpu_tpu_torch.ops import camera as tcam
+from raytracing_gpu_tpu_torch.ops import cuda_intersect as ck
 from raytracing_gpu_tpu_torch.parallel import extract_params, make_train_step
 from raytracing_gpu_tpu_torch.parallel.checkpoint import (
     restore_train_state,
@@ -361,7 +362,8 @@ def test_tanf_is_libms_on_the_cpu():
 @pytest.mark.cuda
 def test_make_train_step_captures_on_the_card(scene):
     """On the card the default step is captured after its first call and
-    replayed, and its losses and parameters follow the eager step's."""
+    replayed, and its losses and parameters follow the eager step's; a
+    replay adds exactly the launches its capture recorded."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA graphs and kernels have no CPU mode)")
     cfg = RenderConfig(backend="cuda", **DEEP)
@@ -371,10 +373,16 @@ def test_make_train_step_captures_on_the_card(scene):
         init_state, step_fn = make_train_step(None, cfg, scene, device="cuda", plan=plan)
         assert (step_fn.plan is not None) is (plan is None)
         state = init_state(extract_params(scene))
-        losses = [float(step_fn(state, scene, coords, target)[1]) for _ in range(3)]
-        runs.append((state, losses))
+        losses = []
+        for _ in range(3):
+            before = dict(ck.LAUNCHES)
+            losses.append(float(step_fn(state, scene, coords, target)[1]))
+            added = {k: ck.LAUNCHES[k] - before[k] for k in before}
+        runs.append((state, losses, step_fn.plan, added))
     assert step_fn.plan is None
-    (graph, losses), (eager, eager_losses) = runs
+    (graph, losses, step_plan, added), (eager, eager_losses, _, _) = runs
+    assert step_plan.last_call == "replay"
+    assert added == step_plan.graph_launches and added["nearest_hit"] > 0
     assert losses[0] == eager_losses[0]
     np.testing.assert_allclose(losses, eager_losses, rtol=1e-3)
     for k in PARAM_KEYS:
