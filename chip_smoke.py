@@ -310,6 +310,23 @@ def sweep_args(rays, pack):
             EPS["self_hit_eps"])
 
 
+def scanned_share(args, units, kernel=None):
+    """(text, share): the (warp, 64-triangle unit) scans of a sweep's
+    arguments whose warp some ray enters the unit's box, out of those its
+    kept pair tiles offer (`sweep_units_plain`); held equal to the kernel's
+    own two counts where it counts (K1, K2)."""
+    offered, scanned = (int(x) for x in ck.sweep_units_plain(args[0], args[1],
+                                                             args[5], units))
+    if kernel is not None:
+        work = ck._launch_sweep(kernel, *args, units)[1]
+        got = work[2:ck._SWEEP_HEAD].view(torch.int64).tolist()
+        if got != [offered, scanned]:
+            raise AssertionError(f"{kernel}: counted {got} (warp, unit) scans offered "
+                                 f"and made, the plain count {[offered, scanned]}")
+    share = scanned / max(offered, 1)
+    return f"scans {scanned} of {offered} (warp, unit) pairs ({100 * share:.1f}%)", share
+
+
 def require_sweep_equal(name, got, ref, what):
     """Bit-equal distances, and equal slots for K1."""
     if name == "nearest_hit":
@@ -327,23 +344,27 @@ def check_sweep(name, rays, pack, iters, what):
     itself on a second run. The plain version is timed by its one reference
     run (all pairs: a full chunk against the grid takes seconds)."""
     args = sweep_args(rays, pack)
+    units = pack.unit_aabb
     kern, plain = SWEEPS[name]
     ref, plain_ms = timed_once(lambda: plain(*args))
-    got, again = kern(*args), kern(*args)
+    got, again = kern(*args, units), kern(*args, units)
     torch.cuda.synchronize()
     require_sweep_equal(name, again, got, what + ", second run against first")
     got, ref = require_sweep_equal(name, got, ref, what)
     mask = args[5]
     Rp, Tp, kept = args[0].shape[1], pack.v0.shape[0], int(mask.sum())
-    bms, by = bound(kept * PAIRS_PER_TILE * OPS_PER_PAIR,
+    scans, share = scanned_share(args, units, name)
+    # the pairs of the (warp, unit) scans made: kept pair tiles x share
+    bms, by = bound(kept * share * PAIRS_PER_TILE * OPS_PER_PAIR,
                     sweep_bytes(Rp, Tp, 8 if name == "nearest_hit" else 4))
-    res = dict(max_abs_err=max_err(got, ref), ms=cuda_ms(lambda: kern(*args), iters),
-               device_ms=device_ms(lambda: kern(*args)),
-               plain_ms=plain_ms,
+    res = dict(max_abs_err=max_err(got, ref),
+               ms=cuda_ms(lambda: kern(*args, units), iters),
+               device_ms=device_ms(lambda: kern(*args, units)),
+               plain_ms=plain_ms, scanned_share=share,
                bound_ms=bms, bound_by=by, library_ms=None, library_device_ms=None)
     say("kernels", f"{name} ({what}): {Rp} rays x {Tp} triangles, {kept}/"
-        f"{mask.numel()} pair tiles kept, {int(torch.isfinite(ref).sum())} hits: "
-        f"bit-equal, and to its own second run; wrapper {res['ms']:.4f} ms, "
+        f"{mask.numel()} pair tiles kept, {int(torch.isfinite(ref).sum())} hits, "
+        f"{scans}: bit-equal, and to its own second run; wrapper {res['ms']:.4f} ms, "
         f"device only {res['device_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
         f"bound {bms:.5f} ms ({by})")
     return res
@@ -412,10 +433,11 @@ def check_any_hit(rays, pack, iters, what):
     mask = ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")
     args = (op, dp, pack.v0, pack.e1, pack.e2, mask, EPS["mt_eps"],
             EPS["self_hit_eps"])
-    got, walked = ck.any_hit_walked(*args)
-    again = ck.any_hit(*args)
+    units = pack.unit_aabb
+    got, walked = ck.any_hit_walked(*args, units)
+    again = ck.any_hit(*args, units)
     ref, plain_ms = timed_once(lambda: ck.any_hit_plain(*args))
-    via_dist = torch.isfinite(ck.nearest_dist(*args)) & ck.live_rays(op)
+    via_dist = torch.isfinite(ck.nearest_dist(*args, units)) & ck.live_rays(op)
     torch.cuda.synchronize()
     for other, label in ((ref, "its plain version"), (via_dist, "nearest_dist < inf"),
                          (again, "its own second run")):
@@ -437,15 +459,19 @@ def check_any_hit(rays, pack, iters, what):
         raise AssertionError(f"any_hit ({what}): scanned {walked.tolist()} units "
                              f"of {kept.tolist()} kept")
     kept, n_walked = int(kept.sum()), int(walked.sum())
-    bms, by = bound(n_walked * PAIRS_PER_UNIT * OPS_PER_PAIR, sweep_bytes(Rp, Tp, 1))
-    res = dict(max_abs_err=0.0, ms=cuda_ms(lambda: ck.any_hit(*args), iters),
-               device_ms=device_ms(lambda: ck.any_hit(*args)),
-               plain_ms=plain_ms,
+    scans, share = scanned_share(args, units)
+    # the walked units' pairs, of which the warps scan about `share`
+    bms, by = bound(n_walked * share * PAIRS_PER_UNIT * OPS_PER_PAIR,
+                    sweep_bytes(Rp, Tp, 1))
+    res = dict(max_abs_err=0.0, ms=cuda_ms(lambda: ck.any_hit(*args, units), iters),
+               device_ms=device_ms(lambda: ck.any_hit(*args, units)),
+               plain_ms=plain_ms, scanned_share=share,
                bound_ms=bms, bound_by=by, library_ms=None, library_device_ms=None,
-               k2_ms=cuda_ms(lambda: ck.nearest_dist(*args), iters),
-               k2_device_ms=device_ms(lambda: ck.nearest_dist(*args)))
+               k2_ms=cuda_ms(lambda: ck.nearest_dist(*args, units), iters),
+               k2_device_ms=device_ms(lambda: ck.nearest_dist(*args, units)))
     say("kernels", f"any_hit ({what}): {Rp} rays ({int(live.sum())} live) x {Tp} "
-        f"triangles, scanned {n_walked} of {kept} kept units, {n_occ} occluded "
+        f"triangles, walked {n_walked} of {kept} kept units ({scans} by the "
+        f"boxes, before the early exit), {n_occ} occluded "
         f"/ {n_free} not, {n_mixed} ray tiles hold both: equal, and to its own "
         f"second run; wrapper {res['ms']:.4f} ms, device only "
         f"{res['device_ms']:.4f} ms (nearest_dist on the same rays "
@@ -469,7 +495,8 @@ def check_any_hit_early_exit(pack, dev, n_rays: int):
     mask = ck.tile_cull_mask_hierarchical(op, dp, pack, "none")
     args = (op, dp, pack.v0, pack.e1, pack.e2, mask, EPS["mt_eps"],
             EPS["self_hit_eps"])
-    got, walked = ck.any_hit_walked(*args)
+    units = pack.unit_aabb
+    got, walked = ck.any_hit_walked(*args, units)
     torch.cuda.synchronize()
     if not torch.equal(got, ck.any_hit_plain(*args)) or not bool(got.all()):
         raise AssertionError("any_hit (saturated tiles): wrong answer")
@@ -485,8 +512,8 @@ def check_any_hit_early_exit(pack, dev, n_rays: int):
         f"equal; scanned {n_walked} of {n_kept} units, {int((walked < kept).sum())} "
         f"of {kept.numel()} ray tiles dropped some (per ray tile {int(walked.min())}"
         f"-{int(walked.max())} of {int(kept.max())}); wrapper "
-        f"{cuda_ms(lambda: ck.any_hit(*args), 10):.4f} ms, nearest_dist "
-        f"{cuda_ms(lambda: ck.nearest_dist(*args), 10):.4f} ms")
+        f"{cuda_ms(lambda: ck.any_hit(*args, units), 10):.4f} ms, nearest_dist "
+        f"{cuda_ms(lambda: ck.nearest_dist(*args, units), 10):.4f} ms")
 
 
 MATMULS = {"nearest_hit_matmul": (ck.nearest_hit_matmul, ck.nearest_hit_matmul_plain),
@@ -520,7 +547,8 @@ def check_matmul(name, rays, pack, iters, what):
                 raise AssertionError(f"{name} ({what}): {n_idx} winner slots "
                                      f"differ from {label}")
         m1 = ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")
-        d1, i1 = ck.nearest_hit(op, dp, pack.v0, pack.e1, pack.e2, m1, **EPS)
+        d1, i1 = ck.nearest_hit(op, dp, pack.v0, pack.e1, pack.e2, m1, **EPS,
+                                unit_aabb=pack.unit_aabb)
         flips = int(((got_idx != i1) | (torch.isfinite(got) != torch.isfinite(d1)))[:R].sum())
         note = f"; {flips} of {R} winners differ from K1's"
         if flips > MAX_EDGE_FLIP_SHARE * R:
@@ -602,7 +630,8 @@ def winners(rays, pack):
     """K1's winner slots of a ray batch (its first R entries)."""
     op, dp, R = ck.pack_rays(*rays)
     mask = ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")
-    return ck.nearest_hit(op, dp, pack.v0, pack.e1, pack.e2, mask, **EPS)[1][:R]
+    return ck.nearest_hit(op, dp, pack.v0, pack.e1, pack.e2, mask, **EPS,
+                          unit_aabb=pack.unit_aabb)[1][:R]
 
 
 def shadows_of(scene, rays, pack):
@@ -1833,10 +1862,11 @@ def check_parked_chunk(pack):
     if int(args[5].sum()):
         raise AssertionError(f"parked rays: culling kept {int(args[5].sum())} pair tiles")
     for name, (kern, plain) in SWEEPS.items():
-        got = require_sweep_equal(name, kern(*args), plain(*args), "all parked")[0]
+        got = require_sweep_equal(name, kern(*args, pack.unit_aabb), plain(*args),
+                                  "all parked")[0]
         if bool(torch.isfinite(got).any()):
             raise AssertionError(f"{name}: a parked ray hit something")
-    idx = ck.nearest_hit(*args)[1]
+    idx = ck.nearest_hit(*args, pack.unit_aabb)[1]
     check_fetch_gradient(pack, idx, "all parked, every row into slot 0")
     say("kernels", f"all-parked chunk ({n} rays): no pair tile kept; nearest_hit and "
         "nearest_dist miss on every ray, bit-equal to their plain versions; the fetch "

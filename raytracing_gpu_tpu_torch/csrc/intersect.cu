@@ -106,6 +106,52 @@ __device__ __forceinline__ float mt_pair(const Ray& r, const Tri& T,
   return dist > self_hit_eps ? dist : CUDART_INF_F;
 }
 
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// 1 / d for the slab test, 1e-30 standing in for a zero component
+// (torch.where(d == 0, 1e-30, d) in the twins): rcp.rn, the correctly rounded
+// reciprocal, equal to the IEEE division 1.0f / d and shorter.
+__device__ __forceinline__ float inv_dir(float d) {
+  return __frcp_rn(d == 0.0f ? 1e-30f : d);
+}
+
+// The slab test of one (ray, box) pair: t1 = (lo - o) * inv and t2 = (hi -
+// o) * inv per axis, tmin = max(tmin, min(t1, t2)) and tmax = min(tmax,
+// max(t1, t2)) from -inf / +inf, kept when tmax >= tmin and tmax >= 0, with
+// inv = inv_dir(d). The max /
+// min are those of torch.maximum / torch.minimum, which return NaN when
+// either side is NaN (see tile_cull_kernel): a box with a NaN bound is
+// entered by no ray.
+__device__ __forceinline__ bool slab_pass(float lx, float ly, float lz,
+                                          float hx, float hy, float hz,
+                                          float ox, float oy, float oz,
+                                          float ix, float iy, float iz) {
+  // max.NaN(-inf, x) and min.NaN(+inf, x) are x for every x, NaN too: the
+  // first axis starts the chain without them
+  float t1 = (lx - ox) * ix, t2 = (hx - ox) * ix;
+  float tmin = min_nan(t1, t2);
+  float tmax = max_nan(t1, t2);
+  t1 = (ly - oy) * iy;
+  t2 = (hy - oy) * iy;
+  tmin = max_nan(tmin, min_nan(t1, t2));
+  tmax = min_nan(tmax, max_nan(t1, t2));
+  t1 = (lz - oz) * iz;
+  t2 = (hz - oz) * iz;
+  tmin = max_nan(tmin, min_nan(t1, t2));
+  tmax = min_nan(tmax, max_nan(t1, t2));
+  return tmax >= tmin && tmax >= 0.0f;
+}
+
 // K1 / K2. What the TPU kernel did: a (triangle tile, worklisted ray tile)
 // grid running in order on one core, folding each 256x256 pair tile into a
 // running (min, argmin) row in VMEM; the ordered, scalar-prefetched worklist
@@ -156,8 +202,47 @@ __device__ __forceinline__ float mt_pair(const Ray& r, const Tri& T,
 // longer blocks: 1.1-1.5x slower on the spheres); two rays per thread with a
 // joint reject chain (within 3% on K1, 20% slower on K2); launch bounds for
 // 6 or 8 resident blocks (within 3%, 5-10% slower).
+//
+// The unit's own box (K1, K2, K4). A pair tile is kept when any one of its
+// 256 rays enters the box of its 256 triangles; on a scene of many small
+// objects most warps of a kept tile miss most of its units (the SPD
+// sphereflake: a level-4 sphere is one unit, a warp is 8 pixels of one row).
+// So each thread runs the slab test of its ray against the box of the unit
+// it was handed (units[unit], built by ops/cuda_intersect.unit_boxes: the
+// union of the unit's triangles that Möller–Trumbore can accept, padded
+// outward so that it holds whatever that arithmetic accepts, NaN where
+// there is none) with the tile cull's arithmetic (slab_pass, inv_dir), and
+// a warp in which no lane enters skips the unit's scan (__any_sync). In K1
+// and K2 a block none of whose threads enters skips the staging too: one
+// __syncthreads_or before it. K4 stages every unit, as its early exit reads
+// its count while the unit is staged. A lane that misses in a warp that
+// scans scans as before: the answer is the plain twin's, which scans every
+// pair of the kept tiles, and the boxes are only a bound. The ray's inverse
+// direction is computed at each unit, not kept with the ray: a block's next
+// unit is of another ray tile nearly always, and three registers more
+// across the scan took K1 from 48 to 60 (4 resident blocks instead of 5).
+// K1 and K2 count the (warp, unit) scans they are offered (8 a unit) and
+// those they make, per block, added into the queue's scratch as the block
+// leaves (work[2..3] and work[4..5], unsigned 64-bit); K4 counts nothing
+// more (what it scans depends on timing).
+// Measured (NVIDIA H100 80GB HBM3, 700 W, device ms per launch, parent ->
+// this, the benchmark's sphereflake): its 65,536-ray camera chunk (K1,
+// 26.8% of the (warp, unit) scans made) 1.439 -> 0.512, the chunk's
+// 196,608 shadow rays (K2, 28.3%) 3.787 -> 1.442, K4 on them 3.107 ->
+// 1.189, the chunk's mirror rays (K1, 12.3%) 7.44 -> 2.33, their shadow
+// rays (K2, 16.4%) 10.74 -> 3.78. Where every warp enters every unit
+// (65,536 rays straight down onto a 16,384-triangle grid whose units each
+// span it) the test costs nothing measurable: K1 2.030 -> 2.009, K2 1.843
+// -> 1.851. Built and measured slower: the ray's inverse direction kept
+// in registers (K1 at 60 registers: dense grid K1 +5.9%), no vote of the
+// block (the sphereflake's mirror rays 2.70 instead of 2.38), the vote
+// with the staging's reads after it (dense grid K2 +3.7%).
 #define SWEEP_SUB 64  // triangles of a pair tile in one unit of work
 #define SWEEP_PARTS (TILE_T / SWEEP_SUB)
+#define SWEEP_WARPS (TILE_R / 32)
+// the queue's scratch: work[0] kept pair tiles, work[1] the next unit,
+// work[2..5] K1's and K2's two counts, then the list
+#define SWEEP_HEAD 6
 #define KEY_MISS 0x7F80000000000000ull  // bits(+inf) << 32 | slot 0
 #define BITS_MISS 0x7F800000u           // bits(+inf)
 
@@ -169,20 +254,38 @@ struct TriRows {
   float4 q[SWEEP_SUB][3];
 };
 
-// Stage the SWEEP_SUB triangles from clustered slot `first` on.
-__device__ __forceinline__ void stage_rows(TriRows& s,
-                                           const float* __restrict__ v0,
-                                           const float* __restrict__ e1,
-                                           const float* __restrict__ e2,
-                                           int first) {
-  float* dst = reinterpret_cast<float*>(s.q);
-  const long base = (long)first * 3;
-  for (int e = threadIdx.x; e < SWEEP_SUB * 3; e += TILE_R) {
-    const int tri = e / 3, c = e - tri * 3;
-    dst[tri * 12 + c] = v0[base + e];
-    dst[tri * 12 + 3 + c] = e1[base + e];
-    dst[tri * 12 + 6 + c] = e2[base + e];
+// A thread's part of staging the SWEEP_SUB triangles from clustered slot
+// `first` on: float e = threadIdx.x of their v0, e1 and e2 planes, read by
+// load_rows into registers and written as rows by store_rows. The sweep
+// issues the reads before the block's vote on the unit's box, so that their
+// latency overlaps the box test; a unit no thread enters wastes them.
+struct RowPart {
+  float v0, e1, e2;
+};
+
+static_assert(SWEEP_SUB * 3 <= TILE_R, "one float of each plane a thread");
+
+__device__ __forceinline__ RowPart load_rows(const float* __restrict__ v0,
+                                             const float* __restrict__ e1,
+                                             const float* __restrict__ e2,
+                                             int first) {
+  RowPart p = {0.0f, 0.0f, 0.0f};
+  const int e = threadIdx.x;
+  if (e < SWEEP_SUB * 3) {
+    const long at = (long)first * 3 + e;
+    p = {v0[at], e1[at], e2[at]};
   }
+  return p;
+}
+
+__device__ __forceinline__ void store_rows(TriRows& s, const RowPart& p) {
+  const int e = threadIdx.x;
+  if (e >= SWEEP_SUB * 3) return;
+  float* dst = reinterpret_cast<float*>(s.q);
+  const int tri = e / 3, c = e - tri * 3;
+  dst[tri * 12 + c] = p.v0;
+  dst[tri * 12 + 3 + c] = p.e1;
+  dst[tri * 12 + 6 + c] = p.e2;
 }
 
 // Scan the SWEEP_SUB triangles staged in `s` (clustered slots `first` on)
@@ -438,10 +541,11 @@ __device__ __forceinline__ void scan_features(
 enum SweepKind { NEAREST_HIT, NEAREST_DIST, ANY_HIT, MATMUL_HIT, MATMUL_DIST };
 
 // The queue, in scratch memory. work[0]: kept pair tiles, work[1]: the next
-// unit to hand out (both zeroed before), work[2 + k]: the k-th kept pair tile
-// as j * nR + rt, in no fixed order. K4 only: live[rt] is the ray tile's count
-// of live rays (all of them still unoccluded), walked[rt] its units scanned.
-// One block of the listing is one ray tile (TILE_R threads).
+// unit to hand out, work[2..5]: the counts of K1 and K2 (all zeroed before),
+// work[SWEEP_HEAD + k]: the k-th kept pair tile as j * nR + rt, in no fixed
+// order. K4 only: live[rt] is the ray tile's count of live rays (all of them
+// still unoccluded), walked[rt] its units scanned. One block of the listing
+// is one ray tile (TILE_R threads).
 template <typename T>
 __global__ void __launch_bounds__(TILE_R)
     sweep_list_kernel(T* __restrict__ out, T value, int n,
@@ -450,7 +554,7 @@ __global__ void __launch_bounds__(TILE_R)
                       int* __restrict__ live, int* __restrict__ walked) {
   const int i = blockIdx.x * TILE_R + threadIdx.x;
   if (i < n) out[i] = value;
-  if (i < n_pairs && mask[i] > 0) work[2 + atomicAdd(&work[0], 1)] = i;
+  if (i < n_pairs && mask[i] > 0) work[SWEEP_HEAD + atomicAdd(&work[0], 1)] = i;
   if (live == nullptr) return;  // the same for every thread
   const bool alive = i < n && fabsf(op[i]) < 1e20f &&
                      fabsf(op[n + i]) < 1e20f && fabsf(op[2 * n + i]) < 1e20f;
@@ -462,35 +566,53 @@ __global__ void __launch_bounds__(TILE_R)
 }
 
 // `out` is K1's and K5's int64 keys, K2's and K6's distance bits or K4's
-// bytes; `live` and `walked` are K4's alone.
+// bytes; `units` the (Tp / SWEEP_SUB, 2, 3) unit boxes of K1, K2 and K4;
+// `live` and `walked` are K4's alone.
 template <int KIND>
 __global__ void __launch_bounds__(TILE_R)
     sweep_kernel(const float* __restrict__ op, const float* __restrict__ dp,
                  int Rp, const float* __restrict__ v0,
                  const float* __restrict__ e1, const float* __restrict__ e2,
-                 int* __restrict__ work, float mt_eps, float self_hit_eps,
-                 void* __restrict__ out, int* __restrict__ live,
-                 int* __restrict__ walked) {
+                 const float* __restrict__ units, int* __restrict__ work,
+                 float mt_eps, float self_hit_eps, void* __restrict__ out,
+                 int* __restrict__ live, int* __restrict__ walked) {
   constexpr bool MATMUL = KIND == MATMUL_HIT || KIND == MATMUL_DIST;
   constexpr bool WANT_IDX = KIND == NEAREST_HIT || KIND == MATMUL_HIT;
+  constexpr bool COUNTED = KIND == NEAREST_HIT || KIND == NEAREST_DIST;
   __shared__ typename std::conditional<MATMUL, FeatRows, TriRows>::type s;
   __shared__ int next;
   __shared__ int scan;  // K4: this unit's ray tile still has a lane to occlude
+  __shared__ unsigned block_scans;  // K1 / K2: the block's (warp, unit) scans
   unsigned long long* key_out = WANT_IDX ? (unsigned long long*)out : nullptr;
   unsigned int* bits_out = WANT_IDX ? nullptr : (unsigned int*)out;
   const int nR = Rp / TILE_R;
   const int n_items = work[0] * SWEEP_PARTS;
+  const bool leader = (threadIdx.x & 31) == 0;
   int rt = -1;
   typename std::conditional<MATMUL, RayFeat, Ray>::type ray;
+  unsigned drawn = 0, scans = 0;  // K1 / K2: units (thread 0), warp's scans
+  if (COUNTED && threadIdx.x == 0) block_scans = 0u;
   for (;;) {
     __syncthreads();  // previous rows consumed, previous `next` read
     if (threadIdx.x == 0) next = atomicAdd(&work[1], 1);
     __syncthreads();
     const int item = next;
-    if (item >= n_items) return;
-    const int pair = work[2 + item / SWEEP_PARTS];
-    const int first =
-        (pair / nR) * TILE_T + (item % SWEEP_PARTS) * SWEEP_SUB;
+    if (item >= n_items) {
+      if constexpr (COUNTED) {  // one add of each count a block
+        if (leader && scans) atomicAdd(&block_scans, scans);
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          unsigned long long* counts = (unsigned long long*)(work + 2);
+          atomicAdd(&counts[0], (unsigned long long)drawn * SWEEP_WARPS);
+          atomicAdd(&counts[1], (unsigned long long)block_scans);
+        }
+      }
+      return;
+    }
+    if (COUNTED && threadIdx.x == 0) ++drawn;
+    const int pair = work[SWEEP_HEAD + item / SWEEP_PARTS];
+    const int unit = (pair / nR) * SWEEP_PARTS + item % SWEEP_PARTS;
+    const int first = unit * SWEEP_SUB;
     const int r = (pair % nR) * TILE_R + threadIdx.x;
     if (pair % nR != rt) {
       rt = pair % nR;
@@ -499,22 +621,40 @@ __global__ void __launch_bounds__(TILE_R)
       else
         ray = load_ray(op, dp, Rp, r);
     }
+    // the unit's box, read as broadcasts
+    bool enter = true;
+    if constexpr (!MATMUL) {
+      const float* B = units + 6 * unit;
+      enter = slab_pass(__ldg(B), __ldg(B + 1), __ldg(B + 2), __ldg(B + 3),
+                        __ldg(B + 4), __ldg(B + 5), ray.ox, ray.oy, ray.oz,
+                        inv_dir(ray.dx), inv_dir(ray.dy), inv_dir(ray.dz));
+    }
+    RowPart part;
+    if constexpr (!MATMUL) part = load_rows(v0, e1, e2, first);
     // K4's early exit: one thread reads the ray tile's count while the unit
     // is staged (no round trip of its own), the barrier hands its verdict to
     // the block, and a unit with nothing left to occlude is not scanned
     int lanes_left = 0;
     if (KIND == ANY_HIT && threadIdx.x == 0)
       lanes_left = *(volatile int*)&live[rt];
+    if constexpr (COUNTED) {  // no ray of the block enters: nothing staged
+      if (!__syncthreads_or(enter)) continue;
+    }
     if constexpr (MATMUL)
       stage_features(s, v0, e1, e2, first);
     else
-      stage_rows(s, v0, e1, e2, first);
+      store_rows(s, part);
     if (KIND == ANY_HIT && threadIdx.x == 0) {
       scan = lanes_left > 0;
       if (scan) atomicAdd(&walked[rt], 1);
     }
     __syncthreads();
     if (KIND == ANY_HIT && !scan) continue;
+    if constexpr (!MATMUL) {  // a warp none of whose rays enters skips
+      const bool warp_enters = __any_sync(0xffffffffu, enter);
+      if (COUNTED) scans += leader && warp_enters;
+      if (!warp_enters) continue;
+    }
     if constexpr (MATMUL)
       scan_features<WANT_IDX>(s, ray, r, first, mt_eps, self_hit_eps, key_out,
                               bits_out);
@@ -589,7 +729,7 @@ __global__ void __launch_bounds__(FETCH_ROWS * L)
 //
 // The design: one block per ray tile, one ray per thread. A thread loads its
 // ray once, coalesced from the (3, Rp) planes, and computes inv once per
-// axis, with IEEE division. The boxes are staged in shared memory
+// axis, correctly rounded (inv_dir). The boxes are staged in shared memory
 // CULL_CHUNK at a time, so any number of boxes works (a flat cull has at
 // most 64, partitioning "aabb" any number of leaf tiles), with the chunk's
 // nonempty flags as ballot words. Every thread reads each box as a
@@ -598,7 +738,7 @@ __global__ void __launch_bounds__(FETCH_ROWS * L)
 // per 32 boxes, and after one barrier the block writes its column of the
 // mask, the chunk's words ANDed with the nonempty words.
 //
-// Bit-equal to the twin: -fmad=false and IEEE division (the build's flags),
+// Bit-equal to the twin: -fmad=false, the correctly rounded reciprocal,
 // and the max / min of torch.maximum / torch.minimum, which return NaN when
 // either side is NaN where fmaxf / fminf return the other side. A NaN
 // arises where a direction component is a subnormal below ~3e-39 (inv =
@@ -622,39 +762,6 @@ __global__ void __launch_bounds__(FETCH_ROWS * L)
 #define CULL_CHUNK TILE_R  // boxes staged per round: one per thread
 #define CULL_WORDS (CULL_CHUNK / 32)
 
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-// The slab test of one (ray, box) pair, in the order above.
-__device__ __forceinline__ bool slab_pass(float lx, float ly, float lz,
-                                          float hx, float hy, float hz,
-                                          float ox, float oy, float oz,
-                                          float ix, float iy, float iz) {
-  // max.NaN(-inf, x) and min.NaN(+inf, x) are x for every x, NaN too: the
-  // first axis starts the chain without them
-  float t1 = (lx - ox) * ix, t2 = (hx - ox) * ix;
-  float tmin = min_nan(t1, t2);
-  float tmax = max_nan(t1, t2);
-  t1 = (ly - oy) * iy;
-  t2 = (hy - oy) * iy;
-  tmin = max_nan(tmin, min_nan(t1, t2));
-  tmax = min_nan(tmax, max_nan(t1, t2));
-  t1 = (lz - oz) * iz;
-  t2 = (hz - oz) * iz;
-  tmin = max_nan(tmin, min_nan(t1, t2));
-  tmax = min_nan(tmax, max_nan(t1, t2));
-  return tmax >= tmin && tmax >= 0.0f;
-}
-
 __global__ void __launch_bounds__(TILE_R)
     tile_cull_kernel(const float* __restrict__ op, const float* __restrict__ dp,
                      int Rp, const float* __restrict__ boxes,
@@ -668,9 +775,9 @@ __global__ void __launch_bounds__(TILE_R)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float ox = op[r], oy = op[Rp + r], oz = op[2 * Rp + r];
   const float dx = dp[r], dy = dp[Rp + r], dz = dp[2 * Rp + r];
-  const float ix = 1.0f / (dx == 0.0f ? 1e-30f : dx);
-  const float iy = 1.0f / (dy == 0.0f ? 1e-30f : dy);
-  const float iz = 1.0f / (dz == 0.0f ? 1e-30f : dz);
+  const float ix = inv_dir(dx);
+  const float iy = inv_dir(dy);
+  const float iz = inv_dir(dz);
   for (int c0 = 0; c0 < nB; c0 += CULL_CHUNK) {
     const int n = nB - c0 < CULL_CHUNK ? nB - c0 : CULL_CHUNK;
     __syncthreads();  // the previous chunk's words are written out
@@ -845,9 +952,9 @@ __global__ void __launch_bounds__(TILE_R)
   }
   const float ox = op[r], oy = op[Rp + r], oz = op[2 * Rp + r];
   const float dx = dp[r], dy = dp[Rp + r], dz = dp[2 * Rp + r];
-  const float ix = 1.0f / (dx == 0.0f ? 1e-30f : dx);
-  const float iy = 1.0f / (dy == 0.0f ? 1e-30f : dy);
-  const float iz = 1.0f / (dz == 0.0f ? 1e-30f : dz);
+  const float ix = inv_dir(dx);
+  const float iy = inv_dir(dy);
+  const float iz = inv_dir(dz);
   __syncthreads();
 
   unsigned long long h0 = 0ull;  // the lane's top boxes entered
@@ -920,24 +1027,26 @@ int sweep_resident_blocks() {
   return blocks;
 }
 
-// One sweep: zero the queue's two counters, list (and set every ray's result
-// to `miss`), then the persistent kernel, all on stream `st`. `work` is
-// scratch of 2 + nT * (Rp / 256) ints, and 2 * (Rp / 256) more for K4.
+// One sweep: zero the queue's counters, list (and set every ray's result to
+// `miss`), then the persistent kernel, all on stream `st`. `work` is scratch
+// of SWEEP_HEAD + nT * (Rp / 256) ints, 8-byte aligned, and 2 * (Rp / 256)
+// more for K4.
 template <int KIND, typename T>
 int launch_sweep(const float* op, const float* dp, int Rp, const float* v0,
-                 const float* e1, const float* e2, const int* mask, int nT,
-                 float mt_eps, float self_hit_eps, T* out, T miss, int* work,
-                 cudaStream_t st) {
+                 const float* e1, const float* e2, const float* units,
+                 const int* mask, int nT, float mt_eps, float self_hit_eps,
+                 T* out, T miss, int* work, cudaStream_t st) {
   const int nR = Rp / TILE_R, n_pairs = nT * nR;
   const int n = Rp > n_pairs ? Rp : n_pairs;
-  int* live = KIND == ANY_HIT ? work + 2 + n_pairs : nullptr;
+  int* live = KIND == ANY_HIT ? work + SWEEP_HEAD + n_pairs : nullptr;
   int* walked = KIND == ANY_HIT ? live + nR : nullptr;
-  cudaMemsetAsync(work, 0, 2 * sizeof(int), st);
+  cudaMemsetAsync(work, 0, SWEEP_HEAD * sizeof(int), st);
   sweep_list_kernel<T><<<(n + TILE_R - 1) / TILE_R, TILE_R, 0, st>>>(
       out, miss, Rp, mask, n_pairs, work, op, live, walked);
   if (nT > 0)
     sweep_kernel<KIND><<<sweep_resident_blocks<KIND>(), TILE_R, 0, st>>>(
-        op, dp, Rp, v0, e1, e2, work, mt_eps, self_hit_eps, out, live, walked);
+        op, dp, Rp, v0, e1, e2, units, work, mt_eps, self_hit_eps, out, live,
+        walked);
   return (int)cudaGetLastError();
 }
 
@@ -946,15 +1055,17 @@ int launch_sweep(const float* op, const float* dp, int Rp, const float* v0,
 extern "C" {
 
 // The five sweeps share one signature: packed rays (3, Rp), triangles
-// (Tp, 3) x 3 with Tp = 256 nT, the (nT, Rp / 256) pair-tile mask, the two
-// epsilons, one result per ray and the queue's scratch (see launch_sweep).
+// (Tp, 3) x 3 with Tp = 256 nT, the unit boxes (Tp / 64, 2, 3) (read by K1,
+// K2 and K4; K5 and K6 take null), the (nT, Rp / 256) pair-tile mask, the
+// two epsilons, one result per ray and the queue's scratch (see
+// launch_sweep).
 #define RGT_SWEEP(name, KIND, T, miss)                                        \
   int name(const float* op, const float* dp, int Rp, const float* v0,         \
-           const float* e1, const float* e2, const int* mask, int nT,         \
-           float mt_eps, float self_hit_eps, T* out, int* work,               \
-           void* stream) {                                                    \
-    return launch_sweep<KIND>(op, dp, Rp, v0, e1, e2, mask, nT, mt_eps,       \
-                              self_hit_eps, out, (T)(miss), work,             \
+           const float* e1, const float* e2, const float* units,              \
+           const int* mask, int nT, float mt_eps, float self_hit_eps, T* out, \
+           int* work, void* stream) {                                         \
+    return launch_sweep<KIND>(op, dp, Rp, v0, e1, e2, units, mask, nT,        \
+                              mt_eps, self_hit_eps, out, (T)(miss), work,     \
                               (cudaStream_t)stream);                          \
   }
 

@@ -189,9 +189,9 @@ def _kernel_sweep(origins, dirs, pack, mt_eps, self_hit_eps, backend,
     card K1's and K5's pair has stride 2 (`ck.key_halves`), on the CPU it is
     contiguous: callers slice, test and pass them to `ck.fetch_rows`, which
     hold for either. Spans "cull" (the tile cull) and "sweep" (the listing
-    and sweep kernels), and the counters of the kept pair tiles
-    (`_count_tiles`), inside the taped call: a tape's replay stamps and
-    counts nothing."""
+    and sweep kernels), the counters of the kept pair tiles
+    (`_count_tiles`) and K1's and K2's of their (warp, unit) scans, inside
+    the taped call: a tape's replay stamps and counts nothing."""
     op, dp, _ = ck.pack_rays(origins, dirs)
     if backend == "cuda_matmul":
         # Möller–Trumbore is translation invariant, and the expanded triple
@@ -213,7 +213,8 @@ def _kernel_sweep(origins, dirs, pack, mt_eps, self_hit_eps, backend,
     with annotate("cull"):
         tmask = ck.tile_cull_mask_hierarchical(op, dp, pack, partitioning)
     _count_tiles(tmask)
-    sweep = (op, dp, pack.v0, pack.e1, pack.e2, tmask, mt_eps, self_hit_eps)
+    sweep = (op, dp, pack.v0, pack.e1, pack.e2, tmask, mt_eps, self_hit_eps,
+             pack.unit_aabb)
     with annotate("sweep"):
         if not want_idx:
             return ck.nearest_dist(*sweep), None
@@ -361,7 +362,7 @@ def _any_hit_sweep(origins, dirs, pack, mt_eps, self_hit_eps, partitioning):
     _count_tiles(tmask)
     with annotate("sweep"):
         return ck.any_hit(op, dp, pack.v0, pack.e1, pack.e2, tmask, mt_eps,
-                          self_hit_eps)[:R]
+                          self_hit_eps, pack.unit_aabb)[:R]
 
 
 def collide_any(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,

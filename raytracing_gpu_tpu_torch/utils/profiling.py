@@ -84,8 +84,11 @@ def trace(log_dir: str):
 # The device counters' slots: the rays each bounce step traces, after its
 # narrowing, and the ray slots it was given (`FramePlan._step`, `render._trace`);
 # the (triangle tile, ray tile) pairs that each tile cull keeps, and all of its
-# pairs (`ops.intersect._count_tiles`).
-COUNTERS = ("live_rays", "ray_slots", "tile_pairs_kept", "tile_pairs")
+# pairs (`ops.intersect._count_tiles`); the (warp, 64-triangle unit) scans
+# that the sweeps K1 and K2 are offered, and those they make because some ray
+# of the warp enters the unit's box (`ops.cuda_intersect._count_units`).
+COUNTERS = ("live_rays", "ray_slots", "tile_pairs_kept", "tile_pairs",
+            "sweep_units", "sweep_units_scanned")
 CAPACITY = 1 << 20  # device stamps a recorder holds: 16 MB, ~350 `spheres` frames
 CALIBRATION_TRIES = 5
 OUTSIDE = "outside the program"  # an idle gap no host span encloses

@@ -256,8 +256,9 @@ def test_front_to_back_round_two_wins_and_skips_on_stacked_walls():
                                          _wall(1.5), _wall(3.0)]))
     v0, e1, e2 = v[:, 0].contiguous(), v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
     boxes = torch.stack([v.reshape(3, -1, 3).amin(1), v.reshape(3, -1, 3).amax(1)], 1)
+    e1, e2 = e1.contiguous(), e2.contiguous()
     pack = ck.KernelPack(None, boxes, torch.ones(3, dtype=torch.bool),
-                         v0, e1.contiguous(), e2.contiguous(), None)
+                         v0, e1, e2, None, ck.unit_boxes(v0, e1, e2))
     rng = np.random.RandomState(4)
     o = np.concatenate([rng.rand(256, 2) - 0.5, np.zeros((256, 1))], 1)
     d = np.tile([[0.0, 0.0, 1.0]], (256, 1))

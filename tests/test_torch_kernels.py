@@ -111,6 +111,8 @@ def test_pack_geometry_matches_jax(packs):
         assert t.numpy().dtype == a.dtype, f
         np.testing.assert_array_equal(t.numpy(), a, err_msg=f"{name}: {f}")
     assert tpack.table.shape[1] == ck.TABLE_WIDTH_MAT
+    # the sweeps' unit boxes, which the JAX package has not
+    assert tpack.unit_aabb.shape == (tpack.v0.shape[0] // ck.UNIT_T, 2, 3)
     # the 24-wide table (no materials) and the dist-only pack
     g = dev.geometry
     j24 = pk.pack_geometry(g.vertices, g.valid, g.normals, g.tri_obj)

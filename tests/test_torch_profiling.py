@@ -268,7 +268,8 @@ def test_a_recording_on_the_cpu_calibrates_and_exports_a_chrome_trace(tmp_path):
     assert [s.name for s in ex["device"]] == ["bounce", "bounce"]
     assert [s.name for s in ex["host"]] == ["frame.launch", "bounce", "bounce"]
     assert ex["counters"] == {"live_rays": 2, "ray_slots": 3, "tile_pairs_kept": 0,
-                              "tile_pairs": 0}
+                              "tile_pairs": 0, "sweep_units": 0,
+                              "sweep_units_scanned": 0}
     assert ex["gaps"] and ex["gaps"][0][0] == profiling.OUTSIDE
     path = profiling.write_chrome_trace(ex, str(tmp_path / "p"))
     assert Path(path).name.startswith("program.")
@@ -406,7 +407,7 @@ def test_fixed_depth_counters_equal_a_recount(monkeypatch):
 
 READERS = ("span_cull_ms.frame", "span_shade_ms.frame", "span_sweep_ms.frame",
            "live_ray_pct.frame", "live_ray_pct.train", "step_idle_pct.train",
-           "span_cull_levels_ms.frame", "tile_keep_pct.frame")
+           "span_cull_levels_ms.frame", "tile_keep_pct.frame", "sweep_scan_pct.frame")
 
 
 def _tiny(name):
@@ -437,6 +438,9 @@ def test_frame_readers_on_a_recorded_stretch():
     assert got["tile_keep_pct.frame"] == pytest.approx(
         100 * c["tile_pairs_kept"] / c["tile_pairs"])
     assert 0 < got["tile_keep_pct.frame"] <= 100
+    assert got["sweep_scan_pct.frame"] == pytest.approx(
+        100 * c["sweep_units_scanned"] / c["sweep_units"])
+    assert 0 < got["sweep_scan_pct.frame"] <= 100
     assert got["span_cull_levels_ms.frame"] is None  # 36-triangle spheres: the flat cull
     per = spans.frames(stretch)
     assert len(per) == spans.RECORDED_FRAMES
@@ -518,9 +522,11 @@ def test_recorder_off_leaves_the_frame_graph_as_it_was():
         # the counters' kernels: the live rays' sum, and the adds into two
         # slots (4 kernel nodes in all, as torch 2.11 captures them); and
         # alike a cull's kept pair tiles summed and added, and its pairs
-        # added (4 more a cull)
+        # added (4 more a cull), and the (warp, unit) scans its sweep was
+        # offered and made, each summed and added (4 more a cull: one K1
+        # or K2 sweep each)
         assert extra == {"rays": {"kernel": 2}, "fold": {"kernel": 2},
-                         "step": {"kernel": per_step + 4 + 4 * culls}}, (extra, off.piece_nodes)
+                         "step": {"kernel": per_step + 4 + 8 * culls}}, (extra, off.piece_nodes)
         del rec
 
 
@@ -535,8 +541,9 @@ def _under(spans, s, name):
 @pytest.mark.cuda
 def test_graph_frame_stamps_equal_the_interpreted_frames():
     """Every device stamp of a graph frame is there, none dropped, and its
-    span tree is the interpreted frame's name for name; the counters agree;
-    the image is byte-equal with the recorder on and off."""
+    span tree is the interpreted frame's name for name; the counters agree,
+    and with the eager frame's on the card (the sweeps' (warp, unit) scans
+    among them); the image is byte-equal with the recorder on and off."""
     _card()
     for mode in ("cpu", "gpu"):
         with profiling.recording("cpu") as cpu_rec:
@@ -559,6 +566,12 @@ def test_graph_frame_stamps_equal_the_interpreted_frames():
         want_tree = [(s.name, s.depth) for s in want["device"]]
         assert tree == want_tree, (mode, len(tree), len(want_tree))
         assert got["counters"] == want["counters"], mode
+        assert 0 < got["counters"]["sweep_units_scanned"] < got["counters"]["sweep_units"]
+        with profiling.recording() as eager_rec:
+            SceneRenderer(make_sphere_scene(**SIZES[mode]),
+                          _cfg(mode, unroll="static"), device="cuda").render_device()
+            torch.cuda.synchronize()
+        assert eager_rec.export()["counters"] == got["counters"], mode
         # syncs are counted while recording only
         assert on.last_frame.syncs == 0 and off.last_frame.syncs is None
         dev = got["device"]

@@ -261,7 +261,9 @@ def test_collide_takes_the_cards_strided_layout(monkeypatch, f2b_tiles):
     layouts = []
 
     def strided_nearest_hit(*args):
-        dist, slot = ck.nearest_hit_plain(*args)
+        # the sweep's arguments and, last, the pack's unit boxes
+        assert len(args) == 9 and args[8].shape == (args[2].shape[0] // ck.UNIT_T, 2, 3)
+        dist, slot = ck.nearest_hit_plain(*args[:8])
         dist, slot = ck.key_halves(ck.sweep_key(dist, slot))
         layouts.append((dist.stride(), slot.stride()))
         return dist, slot

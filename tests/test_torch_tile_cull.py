@@ -295,7 +295,7 @@ def _level_pack(name):
     if name == "boxes5000":
         boxes, nonempty = _random_boxes(5000, 9)
         return ck.KernelPack(None, torch.from_numpy(boxes), torch.from_numpy(nonempty),
-                             None, None, None, None)
+                             None, None, None, None, None)
     if name == "grid75":
         scene = make_sphere_grid_scene(16, 16, nx=4, ny=4, nz=2, n_lat=16, n_lon=20)
     else:
