@@ -10,7 +10,9 @@ configuration's nearest-hit chunk and its 5-light shadow batch) and the
 hierarchical tile cull (`tile_cull_levels_kernel`, on the benchmark's
 `sphereflake` configuration's nearest-hit chunk and its 3-light shadow batch,
 and on a chunk of the grid) against its
-plain PyTorch version on the card at the shapes the renders give it, and
+plain PyTorch version on the card at the shapes the renders give it (K1, K2
+and K4 also on that `sphereflake` chunk's camera and mirror rays and its
+shadow batch, each sweep with the 8-triangle groups its warps entered), and
 the frame graph's three condition kernels
 (`csrc/frame_loop.cu`: `loop_reset`, `bounce_condition`, `chunk_advance`)
 against their twins (`[loop]`: standalone frame graphs driven by seeded
@@ -199,7 +201,7 @@ from raytracing_gpu_tpu_torch.parallel.checkpoint import (
 )
 from raytracing_gpu_tpu_torch.parallel.render import frame_inputs, split_scene
 from raytracing_gpu_tpu_torch.parallel.train import PARAM_KEYS
-from raytracing_gpu_tpu_torch.render import _pick_block, _swiz_ray_ids, frame_depth
+from raytracing_gpu_tpu_torch.render import _bounce, _pick_block, _swiz_ray_ids, frame_depth
 from raytracing_gpu_tpu_torch.utils import capture, frame_graph, image_graph, profiling
 from raytracing_gpu_tpu_torch.utils.compare import assert_images_close
 from raytracing_gpu_tpu_torch.utils.image import ppm_bytes, write_png, write_ppm
@@ -310,21 +312,36 @@ def sweep_args(rays, pack):
             EPS["self_hit_eps"])
 
 
-def scanned_share(args, units, kernel=None):
-    """(text, share): the (warp, 64-triangle unit) scans of a sweep's
-    arguments whose warp some ray enters the unit's box, out of those its
-    kept pair tiles offer (`sweep_units_plain`); held equal to the kernel's
-    own two counts where it counts (K1, K2)."""
-    offered, scanned = (int(x) for x in ck.sweep_units_plain(args[0], args[1],
-                                                             args[5], units))
+def scanned_share(args, pack, kernel=None):
+    """(text, share of the (warp, unit) scans made, share of their groups
+    scanned): the (warp, 64-triangle unit) scans of a sweep's arguments
+    whose warp some ray enters the unit's box, out of those its kept pair
+    tiles offer (`sweep_units_plain`), and the 8-triangle groups of those
+    scans that some ray of the warp enters (`sweep_groups_plain`); held
+    equal to the kernel's own three counts where it counts (K1, K2)."""
+    op, dp, mask, units, groups = args[0], args[1], args[5], pack.unit_aabb, pack.group_aabb
+    want = [int(x) for x in (*ck.sweep_units_plain(op, dp, mask, units),
+                             ck.sweep_groups_plain(op, dp, mask, units, groups))]
     if kernel is not None:
-        work = ck._launch_sweep(kernel, *args, units)[1]
+        work = ck._launch_sweep(kernel, *args, units, groups)[1]
         got = work[2:ck._SWEEP_HEAD].view(torch.int64).tolist()
-        if got != [offered, scanned]:
+        if got != want:
             raise AssertionError(f"{kernel}: counted {got} (warp, unit) scans offered "
-                                 f"and made, the plain count {[offered, scanned]}")
-    share = scanned / max(offered, 1)
-    return f"scans {scanned} of {offered} (warp, unit) pairs ({100 * share:.1f}%)", share
+                                 f"and made and their groups scanned, the plain count "
+                                 f"{want}")
+    offered, scanned, entered = want
+    n_groups = scanned * (ck.UNIT_T // ck.GROUP_T)
+    share, group_share = scanned / max(offered, 1), entered / max(n_groups, 1)
+    return (f"scans {scanned} of {offered} (warp, unit) pairs ({100 * share:.1f}%), "
+            f"{entered} of their {n_groups} groups ({100 * group_share:.1f}%, "
+            f"{ck.UNIT_T // ck.GROUP_T * group_share:.2f} a scan)"), share, group_share
+
+
+def groups_as_units(pack):
+    """The sweeps' boxes with each group's box its unit's: a warp that scans
+    a unit tests all 64 of its triangles, as without group boxes (the eight
+    group tests still made), so one run times the sweep both ways."""
+    return pack.unit_aabb, pack.unit_aabb.repeat_interleave(ck.UNIT_T // ck.GROUP_T, 0)
 
 
 def require_sweep_equal(name, got, ref, what):
@@ -344,29 +361,33 @@ def check_sweep(name, rays, pack, iters, what):
     itself on a second run. The plain version is timed by its one reference
     run (all pairs: a full chunk against the grid takes seconds)."""
     args = sweep_args(rays, pack)
-    units = pack.unit_aabb
+    boxes = (pack.unit_aabb, pack.group_aabb)
     kern, plain = SWEEPS[name]
     ref, plain_ms = timed_once(lambda: plain(*args))
-    got, again = kern(*args, units), kern(*args, units)
+    got, again = kern(*args, *boxes), kern(*args, *boxes)
+    flat = groups_as_units(pack)
     torch.cuda.synchronize()
     require_sweep_equal(name, again, got, what + ", second run against first")
+    require_sweep_equal(name, kern(*args, *flat), got, what + ", every group tested")
     got, ref = require_sweep_equal(name, got, ref, what)
     mask = args[5]
     Rp, Tp, kept = args[0].shape[1], pack.v0.shape[0], int(mask.sum())
-    scans, share = scanned_share(args, units, name)
-    # the pairs of the (warp, unit) scans made: kept pair tiles x share
-    bms, by = bound(kept * share * PAIRS_PER_TILE * OPS_PER_PAIR,
+    scans, share, group_share = scanned_share(args, pack, name)
+    # the pairs tested: kept pair tiles x scans made x their groups scanned
+    bms, by = bound(kept * share * group_share * PAIRS_PER_TILE * OPS_PER_PAIR,
                     sweep_bytes(Rp, Tp, 8 if name == "nearest_hit" else 4))
     res = dict(max_abs_err=max_err(got, ref),
-               ms=cuda_ms(lambda: kern(*args, units), iters),
-               device_ms=device_ms(lambda: kern(*args, units)),
-               plain_ms=plain_ms, scanned_share=share,
+               ms=cuda_ms(lambda: kern(*args, *boxes), iters),
+               device_ms=device_ms(lambda: kern(*args, *boxes)),
+               every_group_device_ms=device_ms(lambda: kern(*args, *flat)),
+               plain_ms=plain_ms, scanned_share=share, group_share=group_share,
                bound_ms=bms, bound_by=by, library_ms=None, library_device_ms=None)
     say("kernels", f"{name} ({what}): {Rp} rays x {Tp} triangles, {kept}/"
         f"{mask.numel()} pair tiles kept, {int(torch.isfinite(ref).sum())} hits, "
-        f"{scans}: bit-equal, and to its own second run; wrapper {res['ms']:.4f} ms, "
-        f"device only {res['device_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-        f"bound {bms:.5f} ms ({by})")
+        f"{scans}: bit-equal, and to its own second run and with every group "
+        f"tested; wrapper {res['ms']:.4f} ms, device only {res['device_ms']:.4f} ms "
+        f"(every group tested {res['every_group_device_ms']:.4f} ms), plain "
+        f"{res['plain_ms']:.4f} ms, bound {bms:.5f} ms ({by})")
     return res
 
 
@@ -433,14 +454,16 @@ def check_any_hit(rays, pack, iters, what):
     mask = ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")
     args = (op, dp, pack.v0, pack.e1, pack.e2, mask, EPS["mt_eps"],
             EPS["self_hit_eps"])
-    units = pack.unit_aabb
-    got, walked = ck.any_hit_walked(*args, units)
-    again = ck.any_hit(*args, units)
+    boxes = (pack.unit_aabb, pack.group_aabb)
+    got, walked = ck.any_hit_walked(*args, *boxes)
+    again = ck.any_hit(*args, *boxes)
+    flat = groups_as_units(pack)
     ref, plain_ms = timed_once(lambda: ck.any_hit_plain(*args))
-    via_dist = torch.isfinite(ck.nearest_dist(*args, units)) & ck.live_rays(op)
+    via_dist = torch.isfinite(ck.nearest_dist(*args, *boxes)) & ck.live_rays(op)
     torch.cuda.synchronize()
     for other, label in ((ref, "its plain version"), (via_dist, "nearest_dist < inf"),
-                         (again, "its own second run")):
+                         (again, "its own second run"),
+                         (ck.any_hit(*args, *flat), "itself with every group tested")):
         n = int((got != other).sum())
         if n:
             raise AssertionError(f"any_hit ({what}): {n} rays differ from {label}")
@@ -459,24 +482,27 @@ def check_any_hit(rays, pack, iters, what):
         raise AssertionError(f"any_hit ({what}): scanned {walked.tolist()} units "
                              f"of {kept.tolist()} kept")
     kept, n_walked = int(kept.sum()), int(walked.sum())
-    scans, share = scanned_share(args, units)
-    # the walked units' pairs, of which the warps scan about `share`
-    bms, by = bound(n_walked * share * PAIRS_PER_UNIT * OPS_PER_PAIR,
+    scans, share, group_share = scanned_share(args, pack)
+    # the walked units' pairs, of which the warps test about share x group_share
+    bms, by = bound(n_walked * share * group_share * PAIRS_PER_UNIT * OPS_PER_PAIR,
                     sweep_bytes(Rp, Tp, 1))
-    res = dict(max_abs_err=0.0, ms=cuda_ms(lambda: ck.any_hit(*args, units), iters),
-               device_ms=device_ms(lambda: ck.any_hit(*args, units)),
-               plain_ms=plain_ms, scanned_share=share,
+    res = dict(max_abs_err=0.0, ms=cuda_ms(lambda: ck.any_hit(*args, *boxes), iters),
+               device_ms=device_ms(lambda: ck.any_hit(*args, *boxes)),
+               every_group_device_ms=device_ms(lambda: ck.any_hit(*args, *flat)),
+               plain_ms=plain_ms, scanned_share=share, group_share=group_share,
                bound_ms=bms, bound_by=by, library_ms=None, library_device_ms=None,
-               k2_ms=cuda_ms(lambda: ck.nearest_dist(*args, units), iters),
-               k2_device_ms=device_ms(lambda: ck.nearest_dist(*args, units)))
+               k2_ms=cuda_ms(lambda: ck.nearest_dist(*args, *boxes), iters),
+               k2_device_ms=device_ms(lambda: ck.nearest_dist(*args, *boxes)))
     say("kernels", f"any_hit ({what}): {Rp} rays ({int(live.sum())} live) x {Tp} "
         f"triangles, walked {n_walked} of {kept} kept units ({scans} by the "
         f"boxes, before the early exit), {n_occ} occluded "
         f"/ {n_free} not, {n_mixed} ray tiles hold both: equal, and to its own "
-        f"second run; wrapper {res['ms']:.4f} ms, device only "
-        f"{res['device_ms']:.4f} ms (nearest_dist on the same rays "
-        f"{res['k2_ms']:.4f} / {res['k2_device_ms']:.4f} ms), plain "
-        f"{res['plain_ms']:.4f} ms, bound {bms:.5f} ms ({by})")
+        f"second run and with every group tested; wrapper {res['ms']:.4f} ms, device "
+        f"only {res['device_ms']:.4f} ms (every group tested "
+        f"{res['every_group_device_ms']:.4f} ms; nearest_dist on the same rays "
+        f"{res['k2_ms']:.4f} / "
+        f"{res['k2_device_ms']:.4f} ms), plain {res['plain_ms']:.4f} ms, bound "
+        f"{bms:.5f} ms ({by})")
     return res
 
 
@@ -495,8 +521,8 @@ def check_any_hit_early_exit(pack, dev, n_rays: int):
     mask = ck.tile_cull_mask_hierarchical(op, dp, pack, "none")
     args = (op, dp, pack.v0, pack.e1, pack.e2, mask, EPS["mt_eps"],
             EPS["self_hit_eps"])
-    units = pack.unit_aabb
-    got, walked = ck.any_hit_walked(*args, units)
+    boxes = (pack.unit_aabb, pack.group_aabb)
+    got, walked = ck.any_hit_walked(*args, *boxes)
     torch.cuda.synchronize()
     if not torch.equal(got, ck.any_hit_plain(*args)) or not bool(got.all()):
         raise AssertionError("any_hit (saturated tiles): wrong answer")
@@ -512,8 +538,8 @@ def check_any_hit_early_exit(pack, dev, n_rays: int):
         f"equal; scanned {n_walked} of {n_kept} units, {int((walked < kept).sum())} "
         f"of {kept.numel()} ray tiles dropped some (per ray tile {int(walked.min())}"
         f"-{int(walked.max())} of {int(kept.max())}); wrapper "
-        f"{cuda_ms(lambda: ck.any_hit(*args, units), 10):.4f} ms, nearest_dist "
-        f"{cuda_ms(lambda: ck.nearest_dist(*args, units), 10):.4f} ms")
+        f"{cuda_ms(lambda: ck.any_hit(*args, *boxes), 10):.4f} ms, nearest_dist "
+        f"{cuda_ms(lambda: ck.nearest_dist(*args, *boxes), 10):.4f} ms")
 
 
 MATMULS = {"nearest_hit_matmul": (ck.nearest_hit_matmul, ck.nearest_hit_matmul_plain),
@@ -548,7 +574,7 @@ def check_matmul(name, rays, pack, iters, what):
                                      f"differ from {label}")
         m1 = ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")
         d1, i1 = ck.nearest_hit(op, dp, pack.v0, pack.e1, pack.e2, m1, **EPS,
-                                unit_aabb=pack.unit_aabb)
+                                unit_aabb=pack.unit_aabb, group_aabb=pack.group_aabb)
         flips = int(((got_idx != i1) | (torch.isfinite(got) != torch.isfinite(d1)))[:R].sum())
         note = f"; {flips} of {R} winners differ from K1's"
         if flips > MAX_EDGE_FLIP_SHARE * R:
@@ -631,7 +657,7 @@ def winners(rays, pack):
     op, dp, R = ck.pack_rays(*rays)
     mask = ck.tile_cull_mask_hierarchical(op, dp, pack, "octree")
     return ck.nearest_hit(op, dp, pack.v0, pack.e1, pack.e2, mask, **EPS,
-                          unit_aabb=pack.unit_aabb)[1][:R]
+                          unit_aabb=pack.unit_aabb, group_aabb=pack.group_aabb)[1][:R]
 
 
 def shadows_of(scene, rays, pack):
@@ -639,6 +665,13 @@ def shadows_of(scene, rays, pack):
     hit = collide(*rays, scene.geometry, backend="cuda", pack=pack)
     so, sd, _ = shadow_rays(scene.lights, hit)
     return so, sd
+
+
+def mirrors_of(scene, rays, pack):
+    """The mirror rays of a batch of rays' hits (the next bounce's rays;
+    the rays that missed parked)."""
+    hit = collide(*rays, scene.geometry, backend="cuda", pack=pack)
+    return _bounce(*rays, hit, hit.mask)
 
 
 # FP32 operations per (ray, box) pair of the slab test: per axis two
@@ -793,10 +826,21 @@ def check_kernels(dev):
     fprim = cpu_primary_rays(flake, chunk)
     results["tile_cull_levels"] = check_cull_levels(
         fprim, flake_pack, 50, "benchmark sphereflake, CPU-mode primary chunk")
+    fshad = shadows_of(flake, fprim, flake_pack)
     results["tile_cull_levels"]["shadow_batch"] = check_cull_levels(
-        shadows_of(flake, fprim, flake_pack), flake_pack, 50,
-        "benchmark sphereflake, its 3-light shadow batch")
-    del flake, flake_pack, fprim
+        fshad, flake_pack, 50, "benchmark sphereflake, its 3-light shadow batch")
+    # the sweeps where the unit and group boxes skip most: camera rays (all
+    # beyond the boxes' reach), mirror and shadow rays of many small spheres
+    results["sphereflake"] = {
+        "camera": check_sweep("nearest_hit", fprim, flake_pack, 10,
+                              "benchmark sphereflake, CPU-mode primary chunk"),
+        "mirror": check_sweep("nearest_hit", mirrors_of(flake, fprim, flake_pack),
+                              flake_pack, 10, "benchmark sphereflake, the chunk's mirror rays"),
+        "shadow": check_sweep("nearest_dist", fshad, flake_pack, 5,
+                              "benchmark sphereflake, its 3-light shadow batch"),
+        "shadow_any_hit": check_any_hit(fshad, flake_pack, 5,
+                                        "benchmark sphereflake, its 3-light shadow batch")}
+    del flake, flake_pack, fprim, fshad
     prim = cpu_primary_rays(sph, chunk)
     shad = shadows_of(sph, prim, sph_pack)
     results["nearest_hit"] = check_sweep("nearest_hit", prim, sph_pack, 20,
@@ -1862,11 +1906,11 @@ def check_parked_chunk(pack):
     if int(args[5].sum()):
         raise AssertionError(f"parked rays: culling kept {int(args[5].sum())} pair tiles")
     for name, (kern, plain) in SWEEPS.items():
-        got = require_sweep_equal(name, kern(*args, pack.unit_aabb), plain(*args),
-                                  "all parked")[0]
+        got = require_sweep_equal(name, kern(*args, pack.unit_aabb, pack.group_aabb),
+                                  plain(*args), "all parked")[0]
         if bool(torch.isfinite(got).any()):
             raise AssertionError(f"{name}: a parked ray hit something")
-    idx = ck.nearest_hit(*args, pack.unit_aabb)[1]
+    idx = ck.nearest_hit(*args, pack.unit_aabb, pack.group_aabb)[1]
     check_fetch_gradient(pack, idx, "all parked, every row into slot 0")
     say("kernels", f"all-parked chunk ({n} rays): no pair tile kept; nearest_hit and "
         "nearest_dist miss on every ray, bit-equal to their plain versions; the fetch "

@@ -155,7 +155,7 @@ __device__ __forceinline__ bool slab_pass(float lx, float ly, float lz,
 // A live ray (every origin component under 1e20 in magnitude) whose origin's
 // largest component is more than UNIT_REACH times the unit box B's largest
 // coordinate magnitude: the box's pad does not cover what Möller–Trumbore
-// accepts for it (ops/cuda_intersect.unit_boxes), so its lane enters the
+// accepts for it (ops/cuda_intersect.sweep_boxes), so its lane enters the
 // unit whatever the slab test says. max_nan as torch's amax: a box of NaN
 // gives NaN, which no comparison passes.
 constexpr float UNIT_REACH = 16.0f;
@@ -224,7 +224,7 @@ __device__ __forceinline__ bool beyond_reach(const float* B, float ox,
 // objects most warps of a kept tile miss most of its units (the SPD
 // sphereflake: a level-4 sphere is one unit, a warp is 8 pixels of one row).
 // So each thread runs the slab test of its ray against the box of the unit
-// it was handed (units[unit], built by ops/cuda_intersect.unit_boxes: the
+// it was handed (units[unit], built by ops/cuda_intersect.sweep_boxes: the
 // union of the unit's triangles that Möller–Trumbore can accept, padded
 // outward so that it holds whatever that arithmetic accepts, NaN where
 // there is none) with the tile cull's arithmetic (slab_pass, inv_dir), a
@@ -256,50 +256,91 @@ __device__ __forceinline__ bool beyond_reach(const float* B, float ox,
 // in registers (K1 at 60 registers: dense grid K1 +5.9%), no vote of the
 // block (the sphereflake's mirror rays 2.70 instead of 2.38), the vote
 // with the staging's reads after it (dense grid K2 +3.7%).
+//
+// The groups' boxes (K1, K2, K4). A warp that enters a unit's box enters
+// few of its triangles' boxes: on the sphereflake its shadow and mirror
+// rays enter 1.4-1.5 of a unit's eight 8-triangle groups a scan, and every
+// lane paid 64 Möller–Trumbore tests a scan all the same. So each group of
+// SWEEP_GROUP triangles has a box too (groups[unit * SWEEP_GROUPS + g],
+// the union of its triangles padded by its unit's pad, so that it is sound
+// for the rays the unit's box is sound for: sweep_boxes), staged with the
+// rows by the threads that store_rows leaves idle. In a warp that scans,
+// each lane forms the mask of the groups its ray enters (group_bits: eight
+// slab tests from shared memory, a tenth of the unit's scan; all of them
+// when the ray starts beyond the unit's reach), the warp ORs the masks
+// (__reduce_or_sync), and the lanes test only the triangles of the groups
+// in it, in ascending slots: the answer is the plain twin's, as above. K1
+// and K2 also count the groups in the warps' masks (work[6..7]); the
+// groups of the scans they make are SWEEP_GROUPS times their scans.
+// Measured (NVIDIA H100 80GB HBM3, 700 W, device ms per launch, parent ->
+// this, in turns; groups entered a scan in brackets): the benchmark's
+// sphereflake chunk's mirror rays (K1, 1.60) 2.387 -> 1.278, its 3-light
+// shadow batch (K2, 1.49) 1.481 -> 0.727 and K4 on it 1.205 -> 0.629, the
+// mirror hits' shadow rays (K2, 2.80) 4.457 -> 2.876; its camera rays, all
+// beyond the reach (K1, 8) 1.410 -> 1.454; the spheres' CPU-mode chunk (K1,
+// 6.88) 0.0765 -> 0.0685 and its shadow rays (K2, 1.88) 0.0283 -> 0.0211;
+// a grid chunk (8) K1 0.298 -> 0.306, K2 0.284 -> 0.280.
 #define SWEEP_SUB 64  // triangles of a pair tile in one unit of work
 #define SWEEP_PARTS (TILE_T / SWEEP_SUB)
 #define SWEEP_WARPS (TILE_R / 32)
+#define SWEEP_GROUP 8  // triangles of a unit under one group box
+#define SWEEP_GROUPS (SWEEP_SUB / SWEEP_GROUP)
+#define SWEEP_ALL_GROUPS ((1u << SWEEP_GROUPS) - 1u)
 // the queue's scratch: work[0] kept pair tiles, work[1] the next unit,
-// work[2..5] K1's and K2's two counts, then the list
-#define SWEEP_HEAD 6
+// work[2..7] K1's and K2's three counts, then the list
+#define SWEEP_HEAD 8
 #define KEY_MISS 0x7F80000000000000ull  // bits(+inf) << 32 | slot 0
 #define BITS_MISS 0x7F800000u           // bits(+inf)
 
 static_assert(TILE_T % SWEEP_SUB == 0, "a triangle tile must split evenly");
+static_assert(SWEEP_SUB % SWEEP_GROUP == 0 && SWEEP_GROUPS < 32,
+              "a unit must split evenly into fewer than 32 groups");
 
 // SWEEP_SUB triangles as rows:
-// q[i] = {v0x v0y v0z e1x | e1y e1z e2x e2y | e2z - - -}.
+// q[i] = {v0x v0y v0z e1x | e1y e1z e2x e2y | e2z - - -},
+// and the boxes of their SWEEP_GROUPS groups: box[g] = {lo x y z, hi x y z}.
 struct TriRows {
   float4 q[SWEEP_SUB][3];
+  float box[SWEEP_GROUPS][6];
 };
 
 // A thread's part of staging the SWEEP_SUB triangles from clustered slot
-// `first` on: float e = threadIdx.x of their v0, e1 and e2 planes, read by
-// load_rows into registers and written as rows by store_rows. The sweep
-// issues the reads before the block's vote on the unit's box, so that their
-// latency overlaps the box test; a unit no thread enters wastes them.
+// `first` on: float e = threadIdx.x of their v0, e1 and e2 planes, or,
+// for the next SWEEP_GROUPS * 6 threads, float e - SWEEP_SUB * 3 of their
+// group boxes (in v0), read by load_rows into registers and written into
+// shared memory by store_rows. The sweep issues the reads before the
+// block's vote on the unit's box, so that their latency overlaps the box
+// test; a unit no thread enters wastes them.
 struct RowPart {
   float v0, e1, e2;
 };
 
-static_assert(SWEEP_SUB * 3 <= TILE_R, "one float of each plane a thread");
+static_assert(SWEEP_SUB * 3 + SWEEP_GROUPS * 6 <= TILE_R,
+              "one float of each plane, or of the group boxes, a thread");
 
 __device__ __forceinline__ RowPart load_rows(const float* __restrict__ v0,
                                              const float* __restrict__ e1,
                                              const float* __restrict__ e2,
+                                             const float* __restrict__ groups,
                                              int first) {
   RowPart p = {0.0f, 0.0f, 0.0f};
   const int e = threadIdx.x;
   if (e < SWEEP_SUB * 3) {
     const long at = (long)first * 3 + e;
     p = {v0[at], e1[at], e2[at]};
+  } else if (e < SWEEP_SUB * 3 + SWEEP_GROUPS * 6) {
+    p.v0 = __ldg(groups + (long)(first / SWEEP_GROUP) * 6 + (e - SWEEP_SUB * 3));
   }
   return p;
 }
 
 __device__ __forceinline__ void store_rows(TriRows& s, const RowPart& p) {
   const int e = threadIdx.x;
-  if (e >= SWEEP_SUB * 3) return;
+  if (e >= SWEEP_SUB * 3) {
+    if (e < SWEEP_SUB * 3 + SWEEP_GROUPS * 6)
+      (&s.box[0][0])[e - SWEEP_SUB * 3] = p.v0;
+    return;
+  }
   float* dst = reinterpret_cast<float*>(s.q);
   const int tri = e / 3, c = e - tri * 3;
   dst[tri * 12 + c] = p.v0;
@@ -307,17 +348,30 @@ __device__ __forceinline__ void store_rows(TriRows& s, const RowPart& p) {
   dst[tri * 12 + 6 + c] = p.e2;
 }
 
-// Scan the SWEEP_SUB triangles staged in `s` (clustered slots `first` on)
-// for ray `r` and fold what it accepted into the per-ray minimum.
+// The groups of the staged unit whose boxes the ray enters (slab_pass, the
+// boxes read as broadcasts): bit g for group g.
+__device__ __forceinline__ unsigned group_bits(const TriRows& s, const Ray& ray,
+                                               float ix, float iy, float iz) {
+  unsigned bits = 0u;
+#pragma unroll
+  for (int g = 0; g < SWEEP_GROUPS; ++g) {
+    const float* B = s.box[g];
+    bits |= (unsigned)slab_pass(B[0], B[1], B[2], B[3], B[4], B[5], ray.ox,
+                                ray.oy, ray.oz, ix, iy, iz)
+            << g;
+  }
+  return bits;
+}
+
+// Test ray `ray` against the staged triangles i0 <= i < i1 (clustered slots
+// first + i), in ascending slots with a strict '<'.
 template <bool WANT_IDX>
-__device__ __forceinline__ void scan_rows(
-    const TriRows& s, const Ray& ray, int r, int first, float mt_eps,
-    float self_hit_eps, unsigned long long* __restrict__ key_out,
-    unsigned int* __restrict__ bits_out) {
-  float best = CUDART_INF_F;
-  int best_idx = 0;
+__device__ __forceinline__ void scan_span(const TriRows& s, const Ray& ray,
+                                          int first, int i0, int i1,
+                                          float mt_eps, float self_hit_eps,
+                                          float& best, int& best_idx) {
 #pragma unroll 2
-  for (int i = 0; i < SWEEP_SUB; ++i) {
+  for (int i = i0; i < i1; ++i) {
     const float4 A = s.q[i][0], B = s.q[i][1];
     const float C = s.q[i][2].x;
     const Tri T = {A.x, A.y, A.z, A.w, B.x, B.y, B.z, B.w, C};
@@ -325,6 +379,30 @@ __device__ __forceinline__ void scan_rows(
     if (d < best) {
       best = d;
       if (WANT_IDX) best_idx = first + i;
+    }
+  }
+}
+
+// Scan the triangles of the staged groups in the warp-uniform mask
+// `groups` (clustered slots `first` on) for ray `r`, in ascending slots, and
+// fold what it accepted into the per-ray minimum. A mask of every group
+// (rays beyond the reach) is one loop over the unit: group by group it took
+// 4-5% longer.
+template <bool WANT_IDX>
+__device__ __forceinline__ void scan_rows(
+    const TriRows& s, unsigned groups, const Ray& ray, int r, int first,
+    float mt_eps, float self_hit_eps, unsigned long long* __restrict__ key_out,
+    unsigned int* __restrict__ bits_out) {
+  float best = CUDART_INF_F;
+  int best_idx = 0;
+  if (groups == SWEEP_ALL_GROUPS) {
+    scan_span<WANT_IDX>(s, ray, first, 0, SWEEP_SUB, mt_eps, self_hit_eps, best,
+                        best_idx);
+  } else {
+    for (; groups; groups &= groups - 1u) {
+      const int g0 = (__ffs(groups) - 1) * SWEEP_GROUP;
+      scan_span<WANT_IDX>(s, ray, first, g0, g0 + SWEEP_GROUP, mt_eps,
+                          self_hit_eps, best, best_idx);
     }
   }
   if (!(best < CUDART_INF_F)) return;  // a miss leaves the init value
@@ -379,22 +457,25 @@ __device__ __forceinline__ bool live_origin(const Ray& r) {
   return fabsf(r.ox) < 1e20f && fabsf(r.oy) < 1e20f && fabsf(r.oz) < 1e20f;
 }
 
-__device__ __forceinline__ void scan_rows_any(const TriRows& s, const Ray& ray,
-                                              int r, float mt_eps,
-                                              float self_hit_eps,
+__device__ __forceinline__ void scan_rows_any(const TriRows& s, unsigned groups,
+                                              const Ray& ray, int r,
+                                              float mt_eps, float self_hit_eps,
                                               unsigned char* __restrict__ occ,
                                               int* __restrict__ live_count) {
   if (!live_origin(ray) || ((volatile unsigned char*)occ)[r]) return;
+  for (; groups; groups &= groups - 1u) {
+    const int g0 = (__ffs(groups) - 1) * SWEEP_GROUP;
 #pragma unroll 2
-  for (int i = 0; i < SWEEP_SUB; ++i) {
-    const float4 A = s.q[i][0], B = s.q[i][1];
-    const float C = s.q[i][2].x;
-    const Tri T = {A.x, A.y, A.z, A.w, B.x, B.y, B.z, B.w, C};
-    if (mt_pair<false>(ray, T, mt_eps, self_hit_eps) < CUDART_INF_F) {
-      const unsigned bit = 1u << (8 * (r & 3));  // byte r of a bool array
-      if (!(atomicOr((unsigned*)occ + (r >> 2), bit) & bit))
-        atomicSub(live_count, 1);  // once per ray: only the flip counts
-      return;
+    for (int i = g0; i < g0 + SWEEP_GROUP; ++i) {
+      const float4 A = s.q[i][0], B = s.q[i][1];
+      const float C = s.q[i][2].x;
+      const Tri T = {A.x, A.y, A.z, A.w, B.x, B.y, B.z, B.w, C};
+      if (mt_pair<false>(ray, T, mt_eps, self_hit_eps) < CUDART_INF_F) {
+        const unsigned bit = 1u << (8 * (r & 3));  // byte r of a bool array
+        if (!(atomicOr((unsigned*)occ + (r >> 2), bit) & bit))
+          atomicSub(live_count, 1);  // once per ray: only the flip counts
+        return;
+      }
     }
   }
 }
@@ -560,7 +641,7 @@ __device__ __forceinline__ void scan_features(
 enum SweepKind { NEAREST_HIT, NEAREST_DIST, ANY_HIT, MATMUL_HIT, MATMUL_DIST };
 
 // The queue, in scratch memory. work[0]: kept pair tiles, work[1]: the next
-// unit to hand out, work[2..5]: the counts of K1 and K2 (all zeroed before),
+// unit to hand out, work[2..7]: the counts of K1 and K2 (all zeroed before),
 // work[SWEEP_HEAD + k]: the k-th kept pair tile as j * nR + rt, in no fixed
 // order. K4 only: live[rt] is the ray tile's count of live rays (all of them
 // still unoccluded), walked[rt] its units scanned. One block of the listing
@@ -585,14 +666,19 @@ __global__ void __launch_bounds__(TILE_R)
 }
 
 // `out` is K1's and K5's int64 keys, K2's and K6's distance bits or K4's
-// bytes; `units` the (Tp / SWEEP_SUB, 2, 3) unit boxes of K1, K2 and K4;
-// `live` and `walked` are K4's alone.
+// bytes; `units` the (Tp / SWEEP_SUB, 2, 3) unit boxes and `groups` the
+// (Tp / SWEEP_GROUP, 2, 3) group boxes of K1, K2 and K4; `live` and
+// `walked` are K4's alone. K1 is held to 5 resident blocks (48 registers):
+// the group tests took it to 51-52 and 4 blocks, 2-16% slower. The others
+// take no minimum (0): at 40-47 registers they fit 5 or 6 blocks, and a
+// minimum of 1 or 5 took K4 from 40 to 46 registers, 7-11% slower.
 template <int KIND>
-__global__ void __launch_bounds__(TILE_R)
+__global__ void __launch_bounds__(TILE_R, KIND == NEAREST_HIT ? 5 : 0)
     sweep_kernel(const float* __restrict__ op, const float* __restrict__ dp,
                  int Rp, const float* __restrict__ v0,
                  const float* __restrict__ e1, const float* __restrict__ e2,
-                 const float* __restrict__ units, int* __restrict__ work,
+                 const float* __restrict__ units,
+                 const float* __restrict__ groups, int* __restrict__ work,
                  float mt_eps, float self_hit_eps, void* __restrict__ out,
                  int* __restrict__ live, int* __restrict__ walked) {
   constexpr bool MATMUL = KIND == MATMUL_HIT || KIND == MATMUL_DIST;
@@ -602,6 +688,7 @@ __global__ void __launch_bounds__(TILE_R)
   __shared__ int next;
   __shared__ int scan;  // K4: this unit's ray tile still has a lane to occlude
   __shared__ unsigned block_scans;  // K1 / K2: the block's (warp, unit) scans
+  __shared__ unsigned block_groups;  // K1 / K2: the groups they scanned
   unsigned long long* key_out = WANT_IDX ? (unsigned long long*)out : nullptr;
   unsigned int* bits_out = WANT_IDX ? nullptr : (unsigned int*)out;
   const int nR = Rp / TILE_R;
@@ -609,8 +696,9 @@ __global__ void __launch_bounds__(TILE_R)
   const bool leader = (threadIdx.x & 31) == 0;
   int rt = -1;
   typename std::conditional<MATMUL, RayFeat, Ray>::type ray;
-  unsigned drawn = 0, scans = 0;  // K1 / K2: units (thread 0), warp's scans
-  if (COUNTED && threadIdx.x == 0) block_scans = 0u;
+  // K1 / K2: units (thread 0), the warp's scans and the groups they scanned
+  unsigned drawn = 0, scans = 0, group_scans = 0;
+  if (COUNTED && threadIdx.x == 0) block_scans = block_groups = 0u;
   for (;;) {
     __syncthreads();  // previous rows consumed, previous `next` read
     if (threadIdx.x == 0) next = atomicAdd(&work[1], 1);
@@ -618,12 +706,16 @@ __global__ void __launch_bounds__(TILE_R)
     const int item = next;
     if (item >= n_items) {
       if constexpr (COUNTED) {  // one add of each count a block
-        if (leader && scans) atomicAdd(&block_scans, scans);
+        if (leader && scans) {
+          atomicAdd(&block_scans, scans);
+          atomicAdd(&block_groups, group_scans);
+        }
         __syncthreads();
         if (threadIdx.x == 0) {
           unsigned long long* counts = (unsigned long long*)(work + 2);
           atomicAdd(&counts[0], (unsigned long long)drawn * SWEEP_WARPS);
           atomicAdd(&counts[1], (unsigned long long)block_scans);
+          atomicAdd(&counts[2], (unsigned long long)block_groups);
         }
       }
       return;
@@ -640,17 +732,22 @@ __global__ void __launch_bounds__(TILE_R)
       else
         ray = load_ray(op, dp, Rp, r);
     }
-    // the unit's box, read as broadcasts
-    bool enter = true;
+    // the unit's box, read as broadcasts; a ray beyond its reach enters
+    // the unit and each of its groups
+    bool enter = true, reach = false;
+    float ix = 0.0f, iy = 0.0f, iz = 0.0f;
     if constexpr (!MATMUL) {
       const float* B = units + 6 * unit;
-      enter = slab_pass(__ldg(B), __ldg(B + 1), __ldg(B + 2), __ldg(B + 3),
-                        __ldg(B + 4), __ldg(B + 5), ray.ox, ray.oy, ray.oz,
-                        inv_dir(ray.dx), inv_dir(ray.dy), inv_dir(ray.dz));
-      if (!enter) enter = beyond_reach(B, ray.ox, ray.oy, ray.oz);
+      ix = inv_dir(ray.dx);
+      iy = inv_dir(ray.dy);
+      iz = inv_dir(ray.dz);
+      reach = beyond_reach(B, ray.ox, ray.oy, ray.oz);
+      enter = reach || slab_pass(__ldg(B), __ldg(B + 1), __ldg(B + 2),
+                                 __ldg(B + 3), __ldg(B + 4), __ldg(B + 5),
+                                 ray.ox, ray.oy, ray.oz, ix, iy, iz);
     }
     RowPart part;
-    if constexpr (!MATMUL) part = load_rows(v0, e1, e2, first);
+    if constexpr (!MATMUL) part = load_rows(v0, e1, e2, groups, first);
     // K4's early exit: one thread reads the ray tile's count while the unit
     // is staged (no round trip of its own), the barrier hands its verdict to
     // the block, and a unit with nothing left to occlude is not scanned
@@ -670,20 +767,26 @@ __global__ void __launch_bounds__(TILE_R)
     }
     __syncthreads();
     if (KIND == ANY_HIT && !scan) continue;
-    if constexpr (!MATMUL) {  // a warp none of whose rays enters skips
+    // a warp none of whose rays enters skips the unit, and in a unit it
+    // scans, the groups none of its rays enters
+    unsigned warp_groups = SWEEP_ALL_GROUPS;
+    if constexpr (!MATMUL) {
       const bool warp_enters = __any_sync(0xffffffffu, enter);
       if (COUNTED) scans += leader && warp_enters;
       if (!warp_enters) continue;
+      warp_groups = __reduce_or_sync(
+          0xffffffffu, reach ? SWEEP_ALL_GROUPS : group_bits(s, ray, ix, iy, iz));
+      if (COUNTED && leader) group_scans += __popc(warp_groups);
     }
     if constexpr (MATMUL)
       scan_features<WANT_IDX>(s, ray, r, first, mt_eps, self_hit_eps, key_out,
                               bits_out);
     else if constexpr (KIND == ANY_HIT)
-      scan_rows_any(s, ray, r, mt_eps, self_hit_eps, (unsigned char*)out,
-                    &live[rt]);
+      scan_rows_any(s, warp_groups, ray, r, mt_eps, self_hit_eps,
+                    (unsigned char*)out, &live[rt]);
     else
-      scan_rows<WANT_IDX>(s, ray, r, first, mt_eps, self_hit_eps, key_out,
-                          bits_out);
+      scan_rows<WANT_IDX>(s, warp_groups, ray, r, first, mt_eps, self_hit_eps,
+                          key_out, bits_out);
   }
 }
 
@@ -1054,8 +1157,8 @@ int sweep_resident_blocks() {
 template <int KIND, typename T>
 int launch_sweep(const float* op, const float* dp, int Rp, const float* v0,
                  const float* e1, const float* e2, const float* units,
-                 const int* mask, int nT, float mt_eps, float self_hit_eps,
-                 T* out, T miss, int* work, cudaStream_t st) {
+                 const float* groups, const int* mask, int nT, float mt_eps,
+                 float self_hit_eps, T* out, T miss, int* work, cudaStream_t st) {
   const int nR = Rp / TILE_R, n_pairs = nT * nR;
   const int n = Rp > n_pairs ? Rp : n_pairs;
   int* live = KIND == ANY_HIT ? work + SWEEP_HEAD + n_pairs : nullptr;
@@ -1065,8 +1168,8 @@ int launch_sweep(const float* op, const float* dp, int Rp, const float* v0,
       out, miss, Rp, mask, n_pairs, work, op, live, walked);
   if (nT > 0)
     sweep_kernel<KIND><<<sweep_resident_blocks<KIND>(), TILE_R, 0, st>>>(
-        op, dp, Rp, v0, e1, e2, units, work, mt_eps, self_hit_eps, out, live,
-        walked);
+        op, dp, Rp, v0, e1, e2, units, groups, work, mt_eps, self_hit_eps, out,
+        live, walked);
   return (int)cudaGetLastError();
 }
 
@@ -1075,17 +1178,17 @@ int launch_sweep(const float* op, const float* dp, int Rp, const float* v0,
 extern "C" {
 
 // The five sweeps share one signature: packed rays (3, Rp), triangles
-// (Tp, 3) x 3 with Tp = 256 nT, the unit boxes (Tp / 64, 2, 3) (read by K1,
-// K2 and K4; K5 and K6 take null), the (nT, Rp / 256) pair-tile mask, the
-// two epsilons, one result per ray and the queue's scratch (see
-// launch_sweep).
+// (Tp, 3) x 3 with Tp = 256 nT, the unit boxes (Tp / 64, 2, 3) and the group
+// boxes (Tp / 8, 2, 3) (read by K1, K2 and K4; K5 and K6 take null), the
+// (nT, Rp / 256) pair-tile mask, the two epsilons, one result per ray and
+// the queue's scratch (see launch_sweep).
 #define RGT_SWEEP(name, KIND, T, miss)                                        \
   int name(const float* op, const float* dp, int Rp, const float* v0,         \
            const float* e1, const float* e2, const float* units,              \
-           const int* mask, int nT, float mt_eps, float self_hit_eps, T* out, \
-           int* work, void* stream) {                                         \
-    return launch_sweep<KIND>(op, dp, Rp, v0, e1, e2, units, mask, nT,        \
-                              mt_eps, self_hit_eps, out, (T)(miss), work,     \
+           const float* groups, const int* mask, int nT, float mt_eps,        \
+           float self_hit_eps, T* out, int* work, void* stream) {             \
+    return launch_sweep<KIND>(op, dp, Rp, v0, e1, e2, units, groups, mask,    \
+                              nT, mt_eps, self_hit_eps, out, (T)(miss), work, \
                               (cudaStream_t)stream);                          \
   }
 

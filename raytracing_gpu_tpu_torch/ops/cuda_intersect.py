@@ -6,7 +6,8 @@ The counterpart of the JAX package's `ops/pallas_intersect.py`:
 - `pack_geometry` clusters the triangles into 256-triangle tiles in morton
   order of their centroids (`cluster_triangles`) and builds the v0/e1/e2
   planes, the 24/32-wide winner table and the padded boxes of the sweeps'
-  64-triangle units (`unit_boxes`), once per render;
+  64-triangle units and of their 8-triangle groups (`sweep_boxes`), once
+  per render;
 - `tile_cull_mask_hierarchical` turns a batch of rays (packed in 256-ray
   tiles by `pack_rays`) into an (nT, nR) mask of (triangle tile, ray tile)
   pairs that may hold a hit: brute force, flat per-ray slab tests, or the
@@ -24,10 +25,13 @@ The counterpart of the JAX package's `ops/pallas_intersect.py`:
   over the whole card in units of 64 triangles; K1/K2 and K5/K6 combine the
   units by the minimum of `sweep_key`, K4 by an OR (`tile_worklist`, the
   JAX package's ordered list, is on no launch path). In K1, K2 and K4 a
-  warp skips a unit whose box none of its 32 rays enters; K1 and K2 count
-  the (warp, unit) scans they are offered and make (`sweep_units_plain`
-  states the count) into the recorder's `sweep_units` and
-  `sweep_units_scanned`;
+  warp skips a unit whose box none of its 32 rays enters, and in a unit it
+  scans, the 8-triangle groups whose boxes none of its rays enters; K1 and
+  K2 count the (warp, unit) scans they are offered and make, and the groups
+  of those scans that some ray entered (`sweep_units_plain`,
+  `sweep_groups_plain` state the counts) into the recorder's `sweep_units`,
+  `sweep_units_scanned` and `sweep_groups_scanned` (a scan has
+  UNIT_T / GROUP_T groups);
 - `nearest_hit_front_to_back` is the two-round composite over K1 (nearest
   triangle tiles first, then only those a hit so far cannot rule out);
 - `ray_features` / `pack_tri_features` state the features of the
@@ -73,6 +77,7 @@ from raytracing_gpu_tpu_torch.utils.profiling import annotate
 TILE_R = 256
 TILE_T = 256
 UNIT_T = 64  # triangles of one unit of a sweep's queue (SWEEP_SUB)
+GROUP_T = 8  # triangles of one group of a unit, each with its own box (SWEEP_GROUP)
 WARP = 32
 INF = float("inf")
 _THIRD = float(np.float32(1.0 / 3.0))  # XLA's mean divides by 3 as * f32(1/3)
@@ -131,7 +136,9 @@ class KernelPack(NamedTuple):
     table: torch.Tensor | None   # (Tp, 24|32) winner rows: v0 e1 e2 n0 n1 n2
     #                              obj [ka kd ks ns nr] (see COL_*)
     unit_aabb: torch.Tensor      # (Tp/64, 2, 3) padded box per sweep unit
-    #                              (`unit_boxes`)
+    #                              (`sweep_boxes`)
+    group_aabb: torch.Tensor     # (Tp/8, 2, 3) padded box per 8-triangle
+    #                              group of a unit (`sweep_boxes`)
 
 
 COL_V0 = slice(0, 3)
@@ -223,25 +230,30 @@ def cluster_triangles(vertices, valid):
 
 
 # the pad of a unit's box, outward on each side: shares of the box's largest
-# side and of its largest coordinate's magnitude (see `unit_boxes`)
+# side and of its largest coordinate's magnitude (see `sweep_boxes`)
 UNIT_PAD_SIDE = 2.0 ** -8
 UNIT_PAD_MAG = 2.0 ** -16
 # a live ray whose origin's largest component exceeds this many times a
 # unit box's largest coordinate magnitude enters the unit whatever its slab
-# test says (`unit_boxes`, `beyond_reach`)
+# test says (`sweep_boxes`, `beyond_reach`)
 UNIT_REACH = 16.0
 
 
-def unit_boxes(v0, e1, e2):
-    """(Tp/64, 2, 3) float32 boxes (lo, hi) of the 64-triangle units of the
-    sweeps, in the planes' clustered order: the union of the corners v0,
-    v0 + e1 and v0 + e2 of the unit's triangles whose edges are both nonzero
-    (Möller–Trumbore rejects the others: a = 0; padding and invalid
+def sweep_boxes(v0, e1, e2):
+    """(unit boxes (Tp/64, 2, 3), group boxes (Tp/8, 2, 3)), float32 (lo,
+    hi), in the planes' clustered order. A unit's box is the union of the
+    corners v0, v0 + e1 and v0 + e2 of its triangles whose edges are both
+    nonzero (Möller–Trumbore rejects the others: a = 0; padding and invalid
     triangles have zero edges), padded outward on every side by
     UNIT_PAD_SIDE of the union's largest side plus UNIT_PAD_MAG of its
     largest coordinate's magnitude; NaN where no triangle of the unit
-    counts, which no slab test enters (its min / max propagate NaN). K1, K2
-    and K4 skip a unit for a warp none of whose rays enters its box.
+    counts, which no slab test enters (its min / max propagate NaN). A
+    group's box is the union of the corners of its own 8 triangles, padded
+    by its unit's pad, NaN where none of them counts. One pass: the groups'
+    raw bounds, reduced to the units' (a min / max, exact), then each
+    padded. K1, K2 and K4 skip a unit for a warp none of whose rays enters
+    its box, and in a unit they scan, a group none of whose rays enters its
+    box (a ray beyond the unit's reach, `beyond_reach`, enters every group).
 
     Why the pad covers what Möller–Trumbore accepts: it solves o + t d =
     v0 + u e1 + v e2 by Cramer's rule in float32, and the u, v of an
@@ -267,19 +279,38 @@ def unit_boxes(v0, e1, e2):
     accepted with u = v = 0 (tests/test_torch_sweep_units.py). Outside these
     bounds -- a large triangle met at a grazing angle, where a is mostly
     rounding and so are u, v and t -- an accepted pair's ray may still miss
-    the box. With no pad some pairs of ordinary rays do."""
+    the box. With no pad some pairs of ordinary rays do.
+
+    Why the groups take their unit's pad: the argument puts the crossing
+    within the pad of a point of the triangle, so it holds for the box of
+    any set of the unit's triangles that holds the accepted one, padded as
+    the unit is; (1) is bounded by the unit's side and (2) by the unit's
+    magnitude, whatever part of the unit the triangle is in. So a group is
+    sound for exactly the rays its unit is sound for, and its reach is the
+    unit's: the kernels test it once a unit. The group's own, smaller pad
+    would leave (1) less room for a triangle near the group's size, and
+    its own magnitude a shorter reach."""
     live = (e1 != 0).any(1) & (e2 != 0).any(1)
     corners = torch.stack([v0, v0 + e1, v0 + e2], 1)
-    lo = torch.where(live[:, None], corners.amin(1), INF).reshape(-1, UNIT_T, 3).amin(1)
-    hi = torch.where(live[:, None], corners.amax(1), -INF).reshape(-1, UNIT_T, 3).amax(1)
-    filled = live.reshape(-1, UNIT_T).any(1)
-    lo = torch.where(filled[:, None], lo, 0.0)
-    hi = torch.where(filled[:, None], hi, 0.0)
-    side = (hi - lo).amax(1, keepdim=True)
-    mag = torch.maximum(lo.abs(), hi.abs()).amax(1, keepdim=True)
+    lo = torch.where(live[:, None], corners.amin(1), INF).reshape(-1, GROUP_T, 3).amin(1)
+    hi = torch.where(live[:, None], corners.amax(1), -INF).reshape(-1, GROUP_T, 3).amax(1)
+    filled = live.reshape(-1, GROUP_T).any(1)
+    per_unit = UNIT_T // GROUP_T
+    ulo = lo.reshape(-1, per_unit, 3).amin(1)
+    uhi = hi.reshape(-1, per_unit, 3).amax(1)
+    ufilled = filled.reshape(-1, per_unit).any(1)
+    ulo = torch.where(ufilled[:, None], ulo, 0.0)
+    uhi = torch.where(ufilled[:, None], uhi, 0.0)
+    side = (uhi - ulo).amax(1, keepdim=True)
+    mag = torch.maximum(ulo.abs(), uhi.abs()).amax(1, keepdim=True)
     pad = side * UNIT_PAD_SIDE + mag * UNIT_PAD_MAG
-    box = torch.stack([lo - pad, hi + pad], 1)
-    return torch.where(filled[:, None, None], box, float("nan")).contiguous()
+
+    def padded(lo, hi, pad, filled):
+        box = torch.stack([lo - pad, hi + pad], 1)
+        return torch.where(filled[:, None, None], box, float("nan")).contiguous()
+
+    return (padded(ulo, uhi, pad, ufilled),
+            padded(lo, hi, pad.repeat_interleave(per_unit, 0), filled))
 
 
 def pack_geometry(vertices, valid, normals=None, tri_obj=None,
@@ -315,8 +346,9 @@ def pack_geometry(vertices, valid, normals=None, tri_obj=None,
         table = check_winner_table(table.contiguous())
     v0, e1, e2 = v0.detach(), e1.detach(), e2.detach()
     with torch.no_grad():
-        units = unit_boxes(v0, e1, e2)
-    return KernelPack(perm, tile_aabb, tile_nonempty, v0, e1, e2, table, units)
+        units, groups = sweep_boxes(v0, e1, e2)
+    return KernelPack(perm, tile_aabb, tile_nonempty, v0, e1, e2, table, units,
+                      groups)
 
 
 # ---------------------------------------------------------------------------
@@ -691,52 +723,93 @@ def live_rays(op):
 def beyond_reach(op, unit_aabb):
     """(nU, Rp) bool: the live ray starts farther from the origin, in its
     largest component, than UNIT_REACH times the unit box's largest
-    coordinate magnitude, beyond what the box's pad covers (`unit_boxes`):
-    it enters the unit whatever its slab test says. The kernels' test bit
-    for bit; False for a box of NaN."""
+    coordinate magnitude, beyond what the box's pad covers (`sweep_boxes`):
+    it enters the unit, and each of its groups, whatever its slab tests say.
+    The kernels' test bit for bit; False for a box of NaN."""
     m = op.abs().amax(0)
     mag = unit_aabb.abs().amax(2).amax(1)
     return (m < 1e20)[None, :] & (m[None, :] > UNIT_REACH * mag[:, None])
 
 
-def sweep_units_plain(op, dp, tile_mask, unit_aabb):
-    """What K1 and K2 count, as int64 scalars: (offered, scanned). Offered:
-    the (warp, unit) pairs of the kept pair tiles, 4 units a tile times 8
-    warps of 32 rays a ray tile; scanned: those in which some ray of the
-    warp enters the unit's box (`_slab_hits_packed`, the kernels' slab test
-    bit for bit) or starts beyond its reach (`beyond_reach`), the scans the
-    kernels make. In ray blocks that bound the (units x rays) tensors."""
+def _scans_plain(op, dp, tile_mask, unit_aabb, rows: int):
+    """The (warp, unit) scans K1 and K2 make, in ray blocks that bound
+    (`rows` x rays) tensors: yields (first ray, last ray, (nU, warps) bool),
+    a kept pair tile's unit for a warp of the block some ray of which enters
+    the unit's box (`_slab_hits_packed`, the kernels' slab test bit for bit)
+    or starts beyond its reach (`beyond_reach`)."""
     Rp, nU = op.shape[1], unit_aabb.shape[0]
     parts, warps = nU // max(tile_mask.shape[0], 1), TILE_R // WARP
     keep = tile_mask > 0
-    offered = keep.sum(dtype=torch.int64) * (parts * warps)
-    scanned = torch.zeros((), dtype=torch.int64, device=op.device)
-    rb = max(TILE_R, (_PLAIN_PAIRS // max(nU, 1)) // TILE_R * TILE_R)
+    rb = max(TILE_R, (_PLAIN_PAIRS // max(rows, 1)) // TILE_R * TILE_R)
     for r0 in range(0, Rp, rb):
         r1 = min(r0 + rb, Rp)
         enter = (_slab_hits_packed(op[:, r0:r1], dp[:, r0:r1], unit_aabb)
                  | beyond_reach(op[:, r0:r1], unit_aabb))
         enter = enter.reshape(nU, -1, WARP).any(2)
         kept = keep[:, r0 // TILE_R:r1 // TILE_R].repeat_interleave(parts, 0)
-        scanned += (kept.repeat_interleave(warps, 1) & enter).sum()
+        yield r0, r1, kept.repeat_interleave(warps, 1) & enter
+
+
+def sweep_units_plain(op, dp, tile_mask, unit_aabb):
+    """What K1 and K2 count of their units, as int64 scalars: (offered,
+    scanned). Offered: the (warp, unit) pairs of the kept pair tiles, 4
+    units a tile times 8 warps of 32 rays a ray tile; scanned: those in
+    which some ray of the warp enters the unit's box or starts beyond its
+    reach, the scans the kernels make (`_scans_plain`)."""
+    parts = unit_aabb.shape[0] // max(tile_mask.shape[0], 1)
+    offered = (tile_mask > 0).sum(dtype=torch.int64) * (parts * (TILE_R // WARP))
+    scanned = torch.zeros((), dtype=torch.int64, device=op.device)
+    for _, _, scans in _scans_plain(op, dp, tile_mask, unit_aabb, unit_aabb.shape[0]):
+        scanned += scans.sum()
     return offered, scanned
 
 
+def sweep_groups_plain(op, dp, tile_mask, unit_aabb, group_aabb):
+    """What K1 and K2 count of their groups, as an int64 scalar: of the
+    UNIT_T / GROUP_T groups of each (warp, unit) scan made
+    (`sweep_units_plain`), those that some ray of the warp enters
+    (`_slab_hits_packed` against the group's box) or that it enters by
+    starting beyond the unit's reach (`beyond_reach`): the groups whose
+    triangles the kernels test."""
+    per_unit = UNIT_T // GROUP_T
+    scanned = torch.zeros((), dtype=torch.int64, device=op.device)
+    for r0, r1, scans in _scans_plain(op, dp, tile_mask, unit_aabb, group_aabb.shape[0]):
+        o, d = op[:, r0:r1], dp[:, r0:r1]
+        enter = (_slab_hits_packed(o, d, group_aabb)
+                 | beyond_reach(o, unit_aabb).repeat_interleave(per_unit, 0))
+        enter = enter.reshape(scans.shape[0], per_unit, scans.shape[1], WARP).any(3)
+        scanned += (enter & scans[:, None, :]).sum()
+    return scanned
+
+
+# the recorder's counters of K1 and K2, in the order of their scratch's counts
+SWEEP_COUNTERS = ("sweep_units", "sweep_units_scanned", "sweep_groups_scanned")
+
+
 def _count_units(counts) -> None:
-    """Into the recorder's counters, when it is on: K1's or K2's (warp,
-    unit) scans offered and made, a pair of int64 scalars."""
-    if profiling.active() is not None:
-        profiling.count("sweep_units", counts[0])
-        profiling.count("sweep_units_scanned", counts[1])
+    """Into the recorder's counters, when it is on, with one add: K1's or
+    K2's (warp, unit) scans offered and made and the groups of those scans
+    that some ray entered, a (3,) int64 tensor."""
+    profiling.count_run(SWEEP_COUNTERS, counts)
 
 
-def _count_units_plain(op, dp, v0, e1, e2, tile_mask, unit_aabb) -> None:
+def _count_units_plain(op, dp, v0, e1, e2, tile_mask, unit_aabb,
+                       group_aabb) -> None:
     """The counts of K1 or K2 where its plain twin runs, from
-    `sweep_units_plain`, when the recorder is on."""
+    `sweep_units_plain` and `sweep_groups_plain`, when the recorder is on."""
     if profiling.active() is not None:
-        if unit_aabb is None:
-            unit_aabb = unit_boxes(v0, e1, e2)
-        _count_units(sweep_units_plain(op, dp, tile_mask, unit_aabb))
+        unit_aabb, group_aabb = _boxes(v0, e1, e2, unit_aabb, group_aabb)
+        _count_units(torch.stack(
+            (*sweep_units_plain(op, dp, tile_mask, unit_aabb),
+             sweep_groups_plain(op, dp, tile_mask, unit_aabb, group_aabb))))
+
+
+def _boxes(v0, e1, e2, unit_aabb, group_aabb):
+    """The unit and group boxes of a sweep: the pair given, or both made
+    from the planes (`sweep_boxes`) where either is None."""
+    if unit_aabb is None or group_aabb is None:
+        return sweep_boxes(v0, e1, e2)
+    return unit_aabb, group_aabb
 
 
 def any_hit_plain(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps):
@@ -877,8 +950,9 @@ _F = ctypes.c_float
 
 # the five sweeps share one C signature; the result's dtype and the extra
 # scratch ints per ray tile differ. The scratch starts with _SWEEP_HEAD ints:
-# the queue's two counters and K1's and K2's two unsigned 64-bit counts
-_SWEEP_HEAD = 6
+# the queue's two counters and K1's and K2's three unsigned 64-bit counts
+# (`SWEEP_COUNTERS`)
+_SWEEP_HEAD = 8
 _SWEEP_OUT = {"nearest_hit": (torch.int64, 0), "nearest_dist": (torch.float32, 0),
               "any_hit": (torch.bool, 2), "nearest_hit_matmul": (torch.int64, 0),
               "nearest_dist_matmul": (torch.float32, 0)}
@@ -891,8 +965,8 @@ def _kernels() -> dict:
     from raytracing_gpu_tpu_torch.csrc.build import load_library
 
     lib = load_library()
-    sweep = ctypes.CFUNCTYPE(_I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _F, _P, _P,
-                             _P)
+    sweep = ctypes.CFUNCTYPE(_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P,
+                             _P, _P)
     fns = {name: sweep((f"rgt_{name}", lib)) for name in _SWEEP_OUT}
     fns["fetch_rows"] = ctypes.CFUNCTYPE(_I, _P, _I, _I, _P, _I, _I, _P, _P)(
         ("rgt_fetch_rows", lib))
@@ -993,24 +1067,25 @@ def key_halves(key):
 
 
 def _launch_sweep(name: str, op, dp, v0, e1, e2, tile_mask, mt_eps,
-                  self_hit_eps, unit_aabb=None):
+                  self_hit_eps, unit_aabb=None, group_aabb=None):
     """Launch one of the five sweeps (a key of `_SWEEP_OUT`) on the
     pair-tile mask itself: (one result per ray -- int64 keys of `sweep_key`,
     float32 distances or bools -- and the queue's scratch, whose last
     2 * Rp/256 ints are K4's live and walked counts). K1, K2 and K4 take the
-    unit boxes (`unit_boxes` of the planes where `unit_aabb` is None); K1
-    and K2 add their counts of (warp, unit) scans into the recorder."""
+    unit and group boxes (both `sweep_boxes` of the planes where either is
+    None); K1 and K2 add their counts of (warp, unit) scans and of their
+    groups into the recorder."""
     Rp, Tp = _require_rays_tris(op, dp, v0, e1, e2)
     nR, nT = _tile_counts(tile_mask, Rp, Tp)
     _require(tile_mask, "tile_mask", torch.int32, (nT, nR))
     dtype, per_ray_tile = _SWEEP_OUT[name]
     dev = op.device
-    units = 0  # K5 and K6 read none
+    units = groups = 0  # K5 and K6 read none
     if name in ("nearest_hit", "nearest_dist", "any_hit"):
-        if unit_aabb is None:
-            unit_aabb = unit_boxes(v0, e1, e2)
+        unit_aabb, group_aabb = _boxes(v0, e1, e2, unit_aabb, group_aabb)
         _require(unit_aabb, "unit_aabb", torch.float32, (Tp // UNIT_T, 2, 3))
-        units = unit_aabb.data_ptr()
+        _require(group_aabb, "group_aabb", torch.float32, (Tp // GROUP_T, 2, 3))
+        units, groups = unit_aabb.data_ptr(), group_aabb.data_ptr()
     out = torch.empty((Rp,), dtype=dtype, device=dev)
     # its own allocation, so that a result does not keep the scratch alive
     work = torch.empty((_SWEEP_HEAD + (nT + per_ray_tile) * nR,),
@@ -1018,7 +1093,7 @@ def _launch_sweep(name: str, op, dp, v0, e1, e2, tile_mask, mt_eps,
     if Rp:
         _check(_kernels()[name](
             op.data_ptr(), dp.data_ptr(), Rp, v0.data_ptr(), e1.data_ptr(),
-            e2.data_ptr(), units, tile_mask.data_ptr(), nT, f32(mt_eps),
+            e2.data_ptr(), units, groups, tile_mask.data_ptr(), nT, f32(mt_eps),
             f32(self_hit_eps), out.data_ptr(), work.data_ptr(),
             _stream(dev)), name)
         LAUNCHES[name] += 1
@@ -1028,13 +1103,14 @@ def _launch_sweep(name: str, op, dp, v0, e1, e2, tile_mask, mt_eps,
 
 
 def nearest_hit(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps,
-                unit_aabb=None):
+                unit_aabb=None, group_aabb=None):
     """K1: nearest accepted hit per ray over the pair tiles tile_mask keeps.
 
     op/dp (3,Rp) float32 with Rp % 256 == 0; v0/e1/e2 (Tp,3) float32 with
     Tp % 256 == 0 (invalid triangles degenerate); tile_mask (Tp/256, Rp/256);
-    unit_aabb the planes' `unit_boxes` (the pack's; made here when None),
-    which only spare the card the scans of units no ray of a warp enters.
+    unit_aabb and group_aabb the planes' `sweep_boxes` (the pack's; both
+    made here when either is None), which only spare the card the scans of units and of
+    groups no ray of a warp enters.
     Returns (dist (Rp,) +inf on a miss, idx (Rp,) int32 clustered slot — the
     lowest on a tie, 0 on a miss). On the card both are views with stride 2
     (`key_halves` of the kernel's int64 keys): index, slice and combine them
@@ -1042,45 +1118,46 @@ def nearest_hit(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps,
     a raw pointer needs `.contiguous()` first. Replaces nearest_hit_pallas."""
     _require_key_order(self_hit_eps)
     if _on_cpu(op, dp, v0, e1, e2, tile_mask):
-        _count_units_plain(op, dp, v0, e1, e2, tile_mask, unit_aabb)
+        _count_units_plain(op, dp, v0, e1, e2, tile_mask, unit_aabb, group_aabb)
         return nearest_hit_plain(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps)
     return key_halves(_launch_sweep("nearest_hit", op, dp, v0, e1, e2,
                                     tile_mask, mt_eps, self_hit_eps,
-                                    unit_aabb)[0])
+                                    unit_aabb, group_aabb)[0])
 
 
 def nearest_dist(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps,
-                 unit_aabb=None):
+                 unit_aabb=None, group_aabb=None):
     """K2: minimum accepted t*|d| per ray ((Rp,), +inf on a miss) — the
     shadow path, which reads only whether it is finite; arguments as K1's.
     Replaces nearest_dist_pallas."""
     _require_key_order(self_hit_eps)
     if _on_cpu(op, dp, v0, e1, e2, tile_mask):
-        _count_units_plain(op, dp, v0, e1, e2, tile_mask, unit_aabb)
+        _count_units_plain(op, dp, v0, e1, e2, tile_mask, unit_aabb, group_aabb)
         return nearest_dist_plain(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps)
     return _launch_sweep("nearest_dist", op, dp, v0, e1, e2, tile_mask, mt_eps,
-                         self_hit_eps, unit_aabb)[0]
+                         self_hit_eps, unit_aabb, group_aabb)[0]
 
 
 def any_hit_walked(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps,
-                   unit_aabb=None):
+                   unit_aabb=None, group_aabb=None):
     """K4 with its work count: (occluded (Rp,) bool, walked (Rp/256,) int32
     -- the units (a kept pair tile's 64-triangle quarters) of each ray tile
     that were scanned; the rest were dropped because every live lane of the
     ray tile was occluded by then). walked depends on how the blocks overlap
     in time: it is at most 4 x the ray tile's kept pair tiles and differs
     from run to run, the answer does not. A unit that no ray of a warp
-    enters is walked but not scanned by that warp. CUDA tensors only."""
+    enters is walked but not scanned by that warp, and in a unit it scans
+    a group none of its rays enters is skipped. CUDA tensors only."""
     if _on_cpu(op, dp, v0, e1, e2, tile_mask):
         raise ValueError("any_hit_walked reports the kernel's work: CUDA "
                          "tensors only")
     occ, work = _launch_sweep("any_hit", op, dp, v0, e1, e2, tile_mask, mt_eps,
-                              self_hit_eps, unit_aabb)
+                              self_hit_eps, unit_aabb, group_aabb)
     return occ, work[work.shape[0] - op.shape[1] // TILE_R:]
 
 
 def any_hit(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps,
-            unit_aabb=None):
+            unit_aabb=None, group_aabb=None):
     """K4: (Rp,) bool, the ray has some accepted hit over the pair tiles
     tile_mask keeps -- exactly `nearest_dist(...) < inf`, without the minimum:
     a ray stops at its first hit, and the rest of a ray tile's work is
@@ -1090,7 +1167,7 @@ def any_hit(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps,
     if _on_cpu(op, dp, v0, e1, e2, tile_mask):
         return any_hit_plain(op, dp, v0, e1, e2, tile_mask, mt_eps, self_hit_eps)
     return _launch_sweep("any_hit", op, dp, v0, e1, e2, tile_mask, mt_eps,
-                         self_hit_eps, unit_aabb)[0]
+                         self_hit_eps, unit_aabb, group_aabb)[0]
 
 
 def nearest_hit_matmul(oc, dp, v0c, e1, e2, tile_mask, mt_eps, self_hit_eps):
@@ -1136,11 +1213,11 @@ def nearest_hit_front_to_back(op, dp, pack: KernelPack, tile_mask, mt_eps,
     near = tent <= kth[None, :]
     sweep = (op, dp, pack.v0, pack.e1, pack.e2)
     dist_a, idx_a = nearest_hit(*sweep, (keep & near).to(torch.int32),
-                                mt_eps, self_hit_eps, pack.unit_aabb)
+                                mt_eps, self_hit_eps, pack.unit_aabb, pack.group_aabb)
     cut = dist_a.reshape(-1, TILE_R).amax(1)
     mask_b = keep & ~near & (tent <= cut[None, :] * 1.0001)
     dist_b, idx_b = nearest_hit(*sweep, mask_b.to(torch.int32), mt_eps,
-                                self_hit_eps, pack.unit_aabb)
+                                self_hit_eps, pack.unit_aabb, pack.group_aabb)
     # the winner across rounds: lexicographic (distance, slot) minimum
     better = (dist_b < dist_a) | ((dist_b == dist_a) & (idx_b < idx_a))
     return torch.where(better, dist_b, dist_a), torch.where(better, idx_b, idx_a)

@@ -214,7 +214,7 @@ def _kernel_sweep(origins, dirs, pack, mt_eps, self_hit_eps, backend,
         tmask = ck.tile_cull_mask_hierarchical(op, dp, pack, partitioning)
     _count_tiles(tmask)
     sweep = (op, dp, pack.v0, pack.e1, pack.e2, tmask, mt_eps, self_hit_eps,
-             pack.unit_aabb)
+             pack.unit_aabb, pack.group_aabb)
     with annotate("sweep"):
         if not want_idx:
             return ck.nearest_dist(*sweep), None
@@ -362,7 +362,7 @@ def _any_hit_sweep(origins, dirs, pack, mt_eps, self_hit_eps, partitioning):
     _count_tiles(tmask)
     with annotate("sweep"):
         return ck.any_hit(op, dp, pack.v0, pack.e1, pack.e2, tmask, mt_eps,
-                          self_hit_eps, pack.unit_aabb)[:R]
+                          self_hit_eps, pack.unit_aabb, pack.group_aabb)[:R]
 
 
 def collide_any(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,

@@ -86,9 +86,10 @@ def trace(log_dir: str):
 # the (triangle tile, ray tile) pairs that each tile cull keeps, and all of its
 # pairs (`ops.intersect._count_tiles`); the (warp, 64-triangle unit) scans
 # that the sweeps K1 and K2 are offered, and those they make because some ray
-# of the warp enters the unit's box (`ops.cuda_intersect._count_units`).
+# of the warp enters the unit's box; the 8-triangle groups of the scans they
+# make that some ray of the warp enters (`ops.cuda_intersect._count_units`).
 COUNTERS = ("live_rays", "ray_slots", "tile_pairs_kept", "tile_pairs",
-            "sweep_units", "sweep_units_scanned")
+            "sweep_units", "sweep_units_scanned", "sweep_groups_scanned")
 CAPACITY = 1 << 20  # device stamps a recorder holds: 16 MB, ~350 `spheres` frames
 CALIBRATION_TRIES = 5
 OUTSIDE = "outside the program"  # an idle gap no host span encloses
@@ -131,6 +132,15 @@ def count(name: str, value) -> None:
     rec = _ACTIVE
     if rec is not None:
         rec.count(name, value)
+
+
+def count_run(names: tuple, values) -> None:
+    """Add the 1-D int64 tensor `values` into the recorder's device counters
+    `names`, which follow each other in COUNTERS, with one add; nothing with
+    the recorder off."""
+    rec = _ACTIVE
+    if rec is not None:
+        rec.count_run(names, values)
 
 
 @contextlib.contextmanager
@@ -340,6 +350,12 @@ class Recorder:
             slot.add_(value.sum(dtype=torch.int64).to(self.device))
         else:
             slot.add_(int(value))
+
+    def count_run(self, names: tuple, values) -> None:
+        i = COUNTERS.index(names[0])
+        if COUNTERS[i:i + len(names)] != tuple(names):
+            raise ValueError(f"{names} do not follow each other in COUNTERS")
+        self.counters[i:i + len(names)].add_(values.to(self.device))
 
     def calibrate(self) -> Calibration:
         """Read both clocks: host ns, one synced device stamp, host ns; of

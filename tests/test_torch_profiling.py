@@ -255,6 +255,22 @@ def test_idle_gaps_are_named_by_the_innermost_host_span():
                                                           profiling.OUTSIDE]
 
 
+def test_count_run_adds_counters_that_follow_each_other():
+    """The sweeps' three counts go into their three counters with one add;
+    names that do not follow each other in COUNTERS are refused."""
+    with profiling.recording("cpu") as rec:
+        profiling.count_run(("sweep_units", "sweep_units_scanned", "sweep_groups_scanned"),
+                            torch.tensor([32, 2, 3]))
+        profiling.count_run(("sweep_units_scanned", "sweep_groups_scanned"),
+                            torch.tensor([1, 1]))
+        with pytest.raises(ValueError, match="follow each other"):
+            profiling.count_run(("sweep_units", "sweep_groups_scanned"), torch.tensor([1, 1]))
+    c = rec.export()["counters"]
+    assert [c[k] for k in ("sweep_units", "sweep_units_scanned",
+                           "sweep_groups_scanned")] == [32, 3, 4]
+    profiling.count_run(("sweep_units",), torch.tensor([5]))  # recorder off: nothing
+
+
 def test_a_recording_on_the_cpu_calibrates_and_exports_a_chrome_trace(tmp_path):
     with profiling.recording("cpu") as rec:
         with profiling.annotate("frame.launch", device=False):
@@ -269,7 +285,7 @@ def test_a_recording_on_the_cpu_calibrates_and_exports_a_chrome_trace(tmp_path):
     assert [s.name for s in ex["host"]] == ["frame.launch", "bounce", "bounce"]
     assert ex["counters"] == {"live_rays": 2, "ray_slots": 3, "tile_pairs_kept": 0,
                               "tile_pairs": 0, "sweep_units": 0,
-                              "sweep_units_scanned": 0}
+                              "sweep_units_scanned": 0, "sweep_groups_scanned": 0}
     assert ex["gaps"] and ex["gaps"][0][0] == profiling.OUTSIDE
     path = profiling.write_chrome_trace(ex, str(tmp_path / "p"))
     assert Path(path).name.startswith("program.")
@@ -407,7 +423,8 @@ def test_fixed_depth_counters_equal_a_recount(monkeypatch):
 
 READERS = ("span_cull_ms.frame", "span_shade_ms.frame", "span_sweep_ms.frame",
            "live_ray_pct.frame", "live_ray_pct.train", "step_idle_pct.train",
-           "span_cull_levels_ms.frame", "tile_keep_pct.frame", "sweep_scan_pct.frame")
+           "span_cull_levels_ms.frame", "tile_keep_pct.frame", "sweep_scan_pct.frame",
+           "sweep_group_pct.frame")
 
 
 def _tiny(name):
@@ -441,6 +458,9 @@ def test_frame_readers_on_a_recorded_stretch():
     assert got["sweep_scan_pct.frame"] == pytest.approx(
         100 * c["sweep_units_scanned"] / c["sweep_units"])
     assert 0 < got["sweep_scan_pct.frame"] <= 100
+    assert got["sweep_group_pct.frame"] == pytest.approx(
+        100 * c["sweep_groups_scanned"] / (8 * c["sweep_units_scanned"]))
+    assert 0 < got["sweep_group_pct.frame"] <= 100
     assert got["span_cull_levels_ms.frame"] is None  # 36-triangle spheres: the flat cull
     per = spans.frames(stretch)
     assert len(per) == spans.RECORDED_FRAMES
@@ -522,11 +542,11 @@ def test_recorder_off_leaves_the_frame_graph_as_it_was():
         # the counters' kernels: the live rays' sum, and the adds into two
         # slots (4 kernel nodes in all, as torch 2.11 captures them); and
         # alike a cull's kept pair tiles summed and added, and its pairs
-        # added (4 more a cull), and the (warp, unit) scans its sweep was
-        # offered and made, each summed and added (4 more a cull: one K1
-        # or K2 sweep each)
+        # added (4 more a cull), and its sweep's three counts (the (warp,
+        # unit) scans offered and made, and the groups of those scanned)
+        # added with one add (1 more a cull: one K1 or K2 sweep each)
         assert extra == {"rays": {"kernel": 2}, "fold": {"kernel": 2},
-                         "step": {"kernel": per_step + 4 + 8 * culls}}, (extra, off.piece_nodes)
+                         "step": {"kernel": per_step + 4 + 5 * culls}}, (extra, off.piece_nodes)
         del rec
 
 
